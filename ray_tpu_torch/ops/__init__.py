@@ -1,0 +1,25 @@
+"""ray_tpu_torch.ops — counterpart of ray_tpu.ops.
+
+- flash_attention / flash_attention_fwd: the forward is a CUDA kernel
+  written for Hopper (csrc/flash_fwd.cu); CPU tensors run its plain
+  version, flash_attention_fwd_plain.
+- mha_reference: the f32 oracle.
+- layers: rmsnorm, layernorm, gelu, rope, cross entropy (plain PyTorch).
+- paged_attention: the paged KV-cache primitives (plain PyTorch).
+"""
+from .attention import mha_reference
+from .flash_attention import (flash_attention, flash_attention_fwd,
+                              flash_attention_fwd_plain)
+from .layers import (apply_rope, cross_entropy_loss, gelu, layernorm,
+                     rmsnorm, rope_cache)
+from .paged_attention import (paged_attention_decode,
+                              paged_attention_prefill, paged_gather_kv,
+                              paged_write_prefill, paged_write_step)
+
+__all__ = [
+    "flash_attention", "flash_attention_fwd", "flash_attention_fwd_plain",
+    "mha_reference", "rmsnorm", "layernorm", "gelu", "rope_cache",
+    "apply_rope", "cross_entropy_loss",
+    "paged_attention_decode", "paged_attention_prefill",
+    "paged_gather_kv", "paged_write_prefill", "paged_write_step",
+]
