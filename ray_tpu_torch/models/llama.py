@@ -43,7 +43,6 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    remat: bool = True       # read by the training slice; inference ignores it
     use_flash: bool = True
 
     @property

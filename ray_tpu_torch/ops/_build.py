@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -26,11 +26,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-
-
-def kernel_names() -> List[str]:
-    """Every kernel source in csrc/, by entry-point name."""
-    return sorted(p.stem for p in SRC_DIR.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -45,45 +40,27 @@ def _digest(src: Path) -> str:
     return hashlib.sha256(src.read_bytes()).hexdigest()
 
 
-def _paths(name: str):
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless the library beside its hash stamp
+    is current. Returns nvcc's ptxas report ('' when nothing was built).
+    Raises RuntimeError with nvcc's output if the build fails."""
+    src = SRC_DIR / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}.so"
-    return SRC_DIR / f"{name}.cu", lib, lib.with_suffix(".so.sha256")
-
-
-def _is_current(name: str) -> bool:
-    src, lib, stamp = _paths(name)
-    return (lib.exists() and stamp.exists()
-            and stamp.read_text().strip() == _digest(src))
-
-
-def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every stale kernel in ``names``, one nvcc process each, all
-    started together. Returns {name: ptxas report} for the ones built.
-    Raises RuntimeError with nvcc's output if any build fails."""
+    stamp = lib.with_suffix(".so.sha256")
+    digest = _digest(src)
+    if lib.exists() and stamp.exists() and stamp.read_text().strip() == digest:
+        return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        if _is_current(name):
-            continue
-        src, lib, _ = _paths(name)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        procs[name] = (tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    reports, failures = {}, []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n"
-                            f"{out}")
-            continue
-        src, lib, stamp = _paths(name)
-        os.replace(tmp, lib)          # atomic: concurrent loaders see old
-        stamp.write_text(_digest(src))  # or new, never a partial file
-        reports[name] = out
-    if failures:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
-    return reports
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"CUDA kernel build of {src} failed (nvcc exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, lib)          # atomic: concurrent loaders see old or
+    stamp.write_text(digest)      # new, never a partial file
+    return proc.stdout
 
 
 def load(name: str, argtypes: list) -> ctypes.CDLL:
@@ -93,8 +70,8 @@ def load(name: str, argtypes: list) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(_paths(name)[1]))
+            build(name)
+            lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
