@@ -5,14 +5,15 @@
 
 Phases, each of which exits non-zero on failure:
 
-1. build    — compile ray_tpu_torch/csrc/flash_fwd.cu with nvcc for
-              sm_90a; print the card's name and power limit.
+1. build    — compile ray_tpu_torch/csrc/flash_fwd.cu and flash_bwd.cu
+              with nvcc for sm_90a, one nvcc each, started together;
+              print the card's name and power limit.
 2. kernels  — each kernel against its plain PyTorch version on the same
-              inputs at the main path's shapes, with the tolerances below,
+              inputs at the main paths' shapes, with the tolerances below,
               and a planted lower-precision control that must fail them;
               kernel, plain and library-call times with CUDA events, and the
               card's bound for the same work; then, untimed, at the shapes
-              and types that reach the kernel's other instances.
+              and types that reach the kernels' other instances.
 3. forward  — Llama-2-7B at full width (32 layers, d_model 4096, 32 heads,
               bf16, random weights from seed 0): `apply` on [1, 1024] and
               [1, 4096] tokens must launch the flash kernel once per layer
@@ -21,16 +22,30 @@ Phases, each of which exits non-zero on failure:
 4. serving  — LLMServer("llama2-7b") answers 8 concurrent requests; every
               request finishes by length, no KV block leaks, and each
               prompt's paged-prefill logits match the dense flash forward.
+5. training — GPT-2 small at full width (12 layers, d_model 768, 12 heads
+              of 64, vocab 50257 padded to 50304; bf16 compute, f32
+              params, random weights from seed 0), the twin of bench.py
+              main(): B=40, S=1024, loss_chunked over 10 chunks,
+              torch.optim.AdamW(lr=3e-4, weight_decay=0.1), 3 warm-up and
+              10 timed steps, each launching flash_fwd and flash_bwd once
+              per layer; the loss starts at ln(50304) and falls. Then a
+              gradient check at B=4: every parameter's gradient against the
+              same model through mha_reference, which three planted
+              backward faults must fail.
 
-The launch counts are zeroed just before phase 3 and read after phase 4;
-the kernel comparisons of phase 2 do not count. The last three lines are
-the card (as nvidia-smi prints it), the kernels JSON line and the result
-JSON line. Without a CUDA device, or without the ray_tpu_torch package
-beside this file, the script fails before printing any result.
+Two main paths are counted: serving (phases 3-4) and training (phase 5's
+steps). The launch counts are zeroed just before each and read just after
+it; the kernel comparisons of phase 2 and the gradient check do not count.
+The last three lines are the card (as nvidia-smi prints it), the kernels
+JSON line and the result JSON line. Without a CUDA device, or without the
+ray_tpu_torch package beside this file, the script fails before printing
+any result.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
+import importlib
 import json
 import math
 import os
@@ -79,22 +94,84 @@ TOL_LOGITS_RMS = 0.1
 LOGIT_CONTROLS = ("causal mask off", "sm_scale x sqrt(2)",
                   "last layer skipped")
 
-KERNEL_CASES = [  # (label, [B, S, H, D], dtype, causal)
-    ("main path S=1024", (1, 1024, 32, 128), "bfloat16", True),
-    ("main path S=4096", (1, 4096, 32, 128), "bfloat16", True),
+#   flash_bwd, dq/dk/dv: the largest error over the tensor's largest |ref|
+#     (bf16 1e-2, about two ulps of the largest gradient; f32 1e-5,
+#     summation order only), and each row's largest error over the row's
+#     largest |ref|, floored at 1/64 of the tensor's largest |ref| (bf16
+#     2e-2, a few ulps of the row's largest value, as for out above; f32
+#     1e-5). The floor keeps rows whose gradient is zero in exact
+#     arithmetic (dq of the first causal row: one key, ds = p (dp -
+#     delta) = 0) from dividing rounding noise by zero. The control below,
+#     ds rounded to float8_e4m3 before its two products, must fail one of
+#     the checks.
+TOL_GRAD = {"bfloat16": 1e-2, "float32": 1e-5}
+TOL_GRAD_ROW = {"bfloat16": 2e-2, "float32": 1e-5}
+GRAD_ROW_FLOOR = 1.0 / 64
+#   GPT-2 small gradients at B=4, S=1024, flash model against the same
+#   model through mha_reference (both bf16): each parameter's
+#   ||g - g_ref|| / ||g_ref|| at most TOL_TRAIN_GRAD (w_qkv and b_qkv
+#   per third). The two paths round to bf16 at other places: the
+#   kernels round ds to bf16, and a row of ds sums to zero, so dq and dk
+#   (sums over 1024 keys) cancel heavily and their relative rounding
+#   error grows, to about 3e-2 in the q and k thirds of w_qkv (1e-3 to
+#   5e-3 elsewhere). Left out: the key third of b_qkv, whose exact
+#   gradient is zero (a bias on every key shifts a row of scores by a
+#   constant, which the softmax cancels), so both paths give rounding
+#   noise and its ratio means nothing. The training phase reads three
+#   planted faults in the backward, swapped into the autograd Function
+#   as a plain backward, and fails unless each of them fails this check.
+TOL_TRAIN_GRAD = 0.1
+ZERO_GRADIENT = "b_qkv[k]"
+TRAIN_FAULTS = ("delta left out", "causal mask off",
+                "sm_scale left out of ds")
+BWD_CONTROL = "ds in float8_e4m3"
+
+# Timed kernel cases: (label, [B, S, H, D], dtype, causal)
+GPT_CASE = "GPT-2 training"    # the training path's attention shape
+FWD_CASES = [
+    ("Llama S=1024", (1, 1024, 32, 128), "bfloat16", True),
+    ("Llama S=4096", (1, 4096, 32, 128), "bfloat16", True),
+    (GPT_CASE, (40, 1024, 12, 64), "bfloat16", True),
     ("non-causal", (2, 256, 12, 64), "bfloat16", False),
     ("f32", (2, 256, 4, 32), "float32", True),
 ]
-# Checked against the plain version but not timed: the kernel's other
-# template instances (bf16 hd 32, f32 hd 64 and 128), a length that is a
-# multiple of 64 but not of 128, and non-causal attention with seq_q !=
-# seq_k. (label, [B, Sq, H, D], Sk, dtype, causal)
-CHECK_CASES = [
+FWD_MAIN = "Llama S=4096"
+BWD_CASES = [
+    (GPT_CASE, (40, 1024, 12, 64), "bfloat16", True),
+    ("S=4096", (2, 4096, 12, 64), "bfloat16", True),
+    ("non-causal", (2, 256, 12, 64), "bfloat16", False),
+    ("f32", (2, 256, 4, 32), "float32", True),
+]
+# Checked against the plain version but not timed: the kernels' other
+# template instances, a length that is a multiple of 64 but not of 128,
+# and non-causal attention with seq_q != seq_k.
+# (label, [B, Sq, H, D], Sk, dtype, causal)
+FWD_CHECKS = [
     ("bf16 hd32 S=192", (2, 192, 8, 32), 192, "bfloat16", True),
     ("bf16 Sq!=Sk", (1, 128, 4, 64), 320, "bfloat16", False),
     ("f32 hd64 Sq!=Sk", (1, 64, 2, 64), 256, "float32", False),
     ("f32 hd128", (1, 256, 2, 128), 256, "float32", True),
 ]
+BWD_CHECKS = FWD_CHECKS + [
+    ("bf16 hd128", (1, 256, 4, 128), 256, "bfloat16", True),
+]
+# GPT-2 small training, as bench.py main(): batch, length, LM-head chunk
+# rows, optimizer, warm-up and timed steps; the gradient check's batch.
+TRAIN_BATCH, TRAIN_SEQ, HEAD_CHUNK_ROWS = 40, 1024, 4096
+TRAIN_LR, TRAIN_WD = 3e-4, 0.1
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+GRAD_BATCH = 4
+H100_BF16_PEAK = 989e12        # MFU denominator, as PEAK_FLOPS
+#   Step-0 loss: the init's logits are x.wte_v with x layernormed (unit
+#   variance per feature) and wte ~ N(0, 0.02^2), so they are about
+#   N(0, d_model * 0.02^2) and the loss is about ln(V) + d_model * 0.02^2
+#   / 2 = 10.8258 + 0.1536 for GPT-2 small; it must lie within 0.05.
+TOL_LOSS0 = 0.05
+# Device kernels of a profiled step, by class: (class, name fragments).
+KERNEL_CLASSES = (("flash_fwd", ("flash_fwd_kernel",)),
+                  ("flash_bwd", ("flash_bwd_",)),
+                  ("matmul", ("gemm", "nvjet", "xmma", "cutlass")),
+                  ("optimizer", ("multi_tensor_apply",)))
 ENGINE_CONFIG = dict(max_batch=8, num_blocks=256, block_size=16,
                      max_blocks_per_seq=16, prefill_buckets=(16, 32, 64))
 N_REQUESTS, MAX_TOKENS = 8, 32
@@ -138,6 +215,20 @@ def flash_bound(shape, dtype: str, causal: bool):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def flash_bwd_bound(shape, sk, dtype, causal):
+    """(ms, 'bytes'|'operations') the card needs at least for one backward:
+    q, out, do, k, v and lse read once, dq, dk, dv written once; five
+    products of 2*Sq*Sk*D FLOPs per head, halved by the causal mask."""
+    b, sq, h, d = shape
+    itemsize = 2 if dtype == "bfloat16" else 4
+    moved = 4 * b * h * d * (sq + sk) * itemsize + b * h * sq * 4
+    flops = 10 * b * h * sq * sk * d // (2 if causal else 1)
+    t_bytes = moved / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def out_errors(out, ref):
     """(max abs error, max over rows of the row's largest error over the
     row's largest |ref|) of attention outputs [B, S, H, D]."""
@@ -166,6 +257,51 @@ def flash_plain_p_fp8(q, k, v, causal):
                        p.to(torch.float8_e4m3fn).float(), v.float())
     out = acc / p.sum(dim=-1, keepdim=True)
     return out.to(q.dtype).transpose(1, 2).contiguous()
+
+
+def grad_errors(got, ref):
+    """Over dq, dk, dv: (the largest error over the tensor's largest
+    |ref|, each row's largest error over the row's largest |ref| floored
+    at GRAD_ROW_FLOOR of the tensor's), each maximised."""
+    scaled = rows = 0.0
+    for g, r in zip(got, ref):
+        diff = (g.float() - r.float()).abs()
+        ref_abs = r.float().abs()
+        top = ref_abs.max().clamp_min(1e-30)
+        scaled = max(scaled, (diff.max() / top).item())
+        row_ref = ref_abs.amax(-1).clamp_min(top * GRAD_ROW_FLOOR)
+        rows = max(rows, (diff.amax(-1) / row_ref).max().item())
+    return scaled, rows
+
+
+def grads_agree(scaled, rows, dtype):
+    return scaled <= TOL_GRAD[dtype] and rows <= TOL_GRAD_ROW[dtype]
+
+
+def bwd_variant(q, k, v, out, lse, do, causal, sm_scale, fault):
+    """flash_attention_bwd_plain's arithmetic with one planted fault (a
+    control for the gradient checks; it launches no kernel): ds rounded
+    to float8_e4m3 instead of the input dtype, delta left out of ds, the
+    causal mask off in the recompute of p, or sm_scale left out of ds."""
+    import torch
+
+    qs = q * torch.tensor(sm_scale, dtype=q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
+    if causal and fault != "causal mask off":
+        idx = torch.arange(q.shape[1], device=q.device)
+        s = s.masked_fill(idx[:, None] < idx[None, :], -1e30)
+    p = torch.exp(s - lse[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    delta = 0.0 if fault == "delta left out" else \
+        (do.float() * out.float()).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (dp - delta) * (1.0 if fault == "sm_scale left out of ds"
+                             else sm_scale)
+    ds = ds.to(torch.float8_e4m3fn if fault == BWD_CONTROL
+               else k.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def logits_errors(got, ref):
@@ -207,12 +343,13 @@ def phase_build():
     from ray_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    report = _build.build("flash_fwd")
+    reports = _build.build("flash_fwd", "flash_bwd")
     build_s = time.perf_counter() - t0
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] flash_fwd: {line.strip()}")
-    print(f"[build] flash_fwd built in {build_s:.2f} s")
+    for name, report in reports.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+    print(f"[build] flash_fwd and flash_bwd built together in {build_s:.2f} s")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -222,18 +359,24 @@ def phase_build():
     return card
 
 
-def phase_kernels():
+def _randn(shapes, dtype, seed):
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return [torch.randn(s, generator=gen, device="cuda",
+                        dtype=getattr(torch, dtype)) for s in shapes]
+
+
+def phase_kernels_fwd():
     import torch
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import flash_attention_fwd, flash_attention_fwd_plain
 
     rows = []
-    for i, (label, shape, dtype, causal) in enumerate(KERNEL_CASES):
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(SEED + i)
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda",
-                               dtype=getattr(torch, dtype)) for _ in range(3))
+    for i, (label, shape, dtype, causal) in enumerate(FWD_CASES):
+        q, k, v = _randn([shape] * 3, dtype, SEED + i)
         out, lse = flash_attention_fwd(q, k, v, causal)
         ref_out, ref_lse = flash_attention_fwd_plain(q, k, v, causal)
         torch.cuda.synchronize()
@@ -249,14 +392,14 @@ def phase_kernels():
                 flash_plain_p_fp8(q, k, v, causal), ref_out)
             control = (f"; control (p in float8_e4m3): out err "
                        f"{ctl_abs:.3e}, row-scaled {ctl_row:.3e}")
-        long = shape[1] >= 4096
+        big = shape[0] * shape[1] >= 4096
         ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal),
-                     reps=10 if long else 30)
+                     reps=10 if big else 30)
         plain_ms = cuda_ms(lambda: flash_attention_fwd_plain(q, k, v, causal),
-                           reps=2 if long else 10, warmup=1)
+                           reps=2 if big else 10, warmup=1)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal), reps=10 if long else 30)
+            qt, kt, vt, is_causal=causal), reps=10 if big else 30)
         bound_ms, bound_by = flash_bound(shape, dtype, causal)
         row = dict(label=label, shape=list(shape), dtype=dtype, causal=causal,
                    max_abs_err=err_out, row_scaled_err=err_row,
@@ -280,13 +423,10 @@ def phase_kernels():
         rows.append(row)
         del q, k, v, out, lse, ref_out, ref_lse, qt, kt, vt
         torch.cuda.empty_cache()
-    for i, (label, shape, sk, dtype, causal) in enumerate(CHECK_CASES):
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(SEED + len(KERNEL_CASES) + i)
+    for i, (label, shape, sk, dtype, causal) in enumerate(FWD_CHECKS):
         b, sq, h, d = shape
-        q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda",
-                               dtype=getattr(torch, dtype))
-                   for n in (sq, sk, sk))
+        q, k, v = _randn([shape, (b, sk, h, d), (b, sk, h, d)], dtype,
+                         SEED + len(FWD_CASES) + i)
         out, lse = flash_attention_fwd(q, k, v, causal)
         ref_out, ref_lse = flash_attention_fwd_plain(q, k, v, causal)
         err_out, err_row = out_errors(out, ref_out)
@@ -297,6 +437,86 @@ def phase_kernels():
         check(out_agrees(err_out, err_row, dtype)
               and err_lse <= TOL_LSE[dtype],
               f"flash {label} disagrees with its plain version")
+    return rows
+
+
+def phase_kernels_bwd():
+    """flash_bwd against flash_attention_bwd_plain on the same residuals
+    (out and lse from the forward kernel), timed beside the plain version
+    and beside SDPA's backward (the yardstick: autograd through
+    scaled_dot_product_attention, its graph retained between calls)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import (flash_attention_bwd,
+                                   flash_attention_bwd_plain,
+                                   flash_attention_fwd)
+
+    rows = []
+    cases = [(label, shape, shape[1], dtype, causal, True)
+             for label, shape, dtype, causal in BWD_CASES]
+    cases += [(label, shape, sk, dtype, causal, False)
+              for label, shape, sk, dtype, causal in BWD_CHECKS]
+    for i, (label, shape, sk, dtype, causal, timed) in enumerate(cases):
+        b, sq, h, d = shape
+        q, k, v, do = _randn([shape, (b, sk, h, d), (b, sk, h, d), shape],
+                             dtype, SEED + 100 + i)
+        scale = 1.0 / math.sqrt(d)
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        got = flash_attention_bwd(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        ref = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+        check(all(g.shape == r.shape and g.dtype == r.dtype
+                  for g, r in zip(got, ref)),
+              f"flash_bwd {label}: output shapes or dtypes differ")
+        check(all(bool(torch.isfinite(g.float()).all()) for g in got),
+              f"flash_bwd {label}: non-finite gradient")
+        err_abs = max((g.float() - r.float()).abs().max().item()
+                      for g, r in zip(got, ref))
+        scaled, row_err = grad_errors(got, ref)
+        control = ""
+        if dtype == "bfloat16":
+            ctl = grad_errors(bwd_variant(q, k, v, out, lse, do, causal,
+                                          scale, BWD_CONTROL), ref)
+            control = (f"; control ({BWD_CONTROL}): scaled {ctl[0]:.3e}, "
+                       f"row-scaled {ctl[1]:.3e}")
+        text = (f"{list(shape)} seq_k {sk} {dtype} causal={causal}: max abs "
+                f"err {err_abs:.3e}, scaled {scaled:.3e} (tol "
+                f"{TOL_GRAD[dtype]}), row-scaled {row_err:.3e} (tol "
+                f"{TOL_GRAD_ROW[dtype]}){control}")
+        row = dict(label=label, shape=list(shape), seq_k=sk, dtype=dtype,
+                   causal=causal, max_abs_err=err_abs, scaled_err=scaled,
+                   row_scaled_err=row_err)
+        if timed:
+            big = b * sq >= 4096
+            ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do,
+                                                     causal),
+                         reps=10 if big else 30)
+            plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
+                q, k, v, out, lse, do, causal), reps=2 if big else 10,
+                warmup=1)
+            with torch.enable_grad():
+                leaves = [x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v)]
+                o = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+                g = do.transpose(1, 2)
+                lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                    o, leaves, g, retain_graph=True), reps=10 if big else 30)
+            bound_ms, bound_by = flash_bwd_bound(shape, sk, dtype, causal)
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            text += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                     f"backward {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                     f"({bound_by})")
+            del leaves, o, g
+        print(f"[kernels] flash_bwd {label} {text}")
+        check(grads_agree(scaled, row_err, dtype),
+              f"flash_bwd {label} disagrees with its plain version")
+        check(not control or not grads_agree(*ctl, dtype),
+              f"flash_bwd {label}: the float8 control passes the check")
+        rows.append(row)
+        del q, k, v, do, out, lse, got, ref
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -479,6 +699,255 @@ def phase_serving(server):
     return out
 
 
+def lm_head_losses(model, params, tokens, targets, num_chunks):
+    """(loss with the port's LM head, whose bf16 product rounds the logits
+    to bf16, and loss with the JAX model's head, the same bf16 operands
+    with the f32 accumulation kept unrounded) on the same backbone."""
+    import torch
+
+    with torch.no_grad():
+        x = model._backbone(params, tokens)
+        port = model._chunked_head_nll(params["wte"], x, targets,
+                                       num_chunks).item()
+        head = params["wte"].to(model.config.dtype).float()
+        total, n = 0.0, targets.numel()
+        for xc, tc in zip(x.reshape(n, -1).chunk(num_chunks),
+                          targets.reshape(n).chunk(num_chunks)):
+            logits = xc.float() @ head.T
+            total += (torch.logsumexp(logits, dim=-1)
+                      - logits.gather(-1, tc[:, None])[:, 0]).sum().item()
+    return port, total / n
+
+
+def phase_grad_check(model, params):
+    """Every parameter's gradient of loss_chunked at [GRAD_BATCH, 1024],
+    flash model against the same model through mha_reference, and the
+    same check on three planted backward faults, each swapped into the
+    autograd Function in place of flash_attention_bwd."""
+    import torch
+
+    from ray_tpu_torch.models import GPT
+    from ray_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd
+
+    fa_mod = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    c = model.config
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    tokens = torch.randint(0, c.vocab_size, (GRAD_BATCH, TRAIN_SEQ),
+                           generator=gen, device="cuda")
+    targets = torch.roll(tokens, -1, dims=1)
+    names = list(params)
+
+    def grads(m):
+        loss = m.loss_chunked(params, tokens, targets, num_chunks=max(
+            1, GRAD_BATCH * TRAIN_SEQ // HEAD_CHUNK_ROWS))
+        return loss.item(), torch.autograd.grad(
+            loss, [params[n] for n in names])
+
+    ref_loss, ref = grads(GPT(dataclasses.replace(c, use_flash=False)))
+
+    def rel_errors(g):
+        """||g - g_ref|| / ||g_ref|| per parameter; w_qkv and b_qkv per
+        third (q, k, v), since a fault in ds reaches only the q and k
+        thirds."""
+        out = {}
+        for n, a, b in zip(names, g, ref):
+            parts = zip("qkv", a.chunk(3, -1), b.chunk(3, -1)) \
+                if n in ("w_qkv", "b_qkv") else [("", a, b)]
+            for part, x, y in parts:
+                key = f"{n}[{part}]" if part else n
+                if key != ZERO_GRADIENT:
+                    out[key] = ((x - y).norm() / y.norm()).item()
+        return out
+
+    before = flash_attention_fwd.launches, flash_attention_bwd.launches
+    loss, g = grads(model)
+    launched = (flash_attention_fwd.launches - before[0],
+                flash_attention_bwd.launches - before[1])
+    check(launched == (c.n_layer, c.n_layer),
+          f"gradient check launched (flash_fwd, flash_bwd) {launched}, "
+          f"expected {c.n_layer} each")
+    sound = rel_errors(g)
+    del g
+    controls = {}
+    for fault in TRAIN_FAULTS:
+        fa_mod.flash_attention_bwd = (
+            lambda q, k, v, out, lse, do, causal, sm_scale, fault=fault:
+            bwd_variant(q, k, v, out, lse, do, causal, sm_scale, fault))
+        try:
+            controls[fault] = rel_errors(grads(model)[1])
+        finally:
+            fa_mod.flash_attention_bwd = flash_attention_bwd
+
+    def worst(errs):   # NaN counts as the worst
+        name = max(errs, key=lambda n: math.inf if math.isnan(errs[n])
+                   else errs[n])
+        return name, errs[name]
+
+    def agrees(errs):
+        return all(e <= TOL_TRAIN_GRAD for e in errs.values())
+
+    print(f"[training] gradient check [{GRAD_BATCH}, {TRAIN_SEQ}], flash "
+          f"vs mha_reference model: loss {loss:.6f} vs {ref_loss:.6f}; "
+          f"worst ||g - g_ref|| / ||g_ref|| {worst(sound)[1]:.4e} "
+          f"({worst(sound)[0]}; tol {TOL_TRAIN_GRAD}); per parameter "
+          f"{json.dumps({n: round(e, 6) for n, e in sound.items()})}")
+    for fault, errs in controls.items():
+        print(f"[training] control, backward with {fault}: worst "
+              f"{worst(errs)[1]:.4e} ({worst(errs)[0]}); per parameter "
+              f"{json.dumps({n: float(f'{e:.4g}') for n, e in errs.items()})}")
+    check(agrees(sound), "flash model gradients disagree with the "
+                         "mha_reference model's")
+    for fault, errs in controls.items():
+        check(not agrees(errs), f"control '{fault}' passes the gradient "
+                                "check")
+    return dict(loss=loss, ref_loss=ref_loss, rel_err=sound,
+                controls={f: worst(e)[1] for f, e in controls.items()})
+
+
+def profile_step(step):
+    """One training step under torch.profiler: device time by kernel
+    class and the device's idle share of the step (the profiler's own
+    host cost is inside the step's wall time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {e.key: e.self_device_time_total / 1e3
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0}
+    by_class = {name: 0.0 for name, _ in KERNEL_CLASSES}
+    by_class["other (elementwise, reductions, copies)"] = 0.0
+    for key, ms in kernels.items():
+        low = key.lower()
+        name = next((n for n, frags in KERNEL_CLASSES
+                     if any(f in low for f in frags)),
+                    "other (elementwise, reductions, copies)")
+        by_class[name] += ms
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    print(f"[training] profiled step: {wall_ms:.2f} ms wall, device busy "
+          f"{busy:.2f} ms (idle share {1 - busy / wall_ms:.4f}), "
+          f"{len(kernels)} distinct kernels; device ms by class "
+          f"{json.dumps({n: round(t, 3) for n, t in by_class.items()})}")
+    for key, ms in top:
+        print(f"[training]   {ms:9.3f} ms  {key[:110]}")
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=1 - busy / wall_ms, device_ms_by_class=by_class,
+                top_kernels_ms=dict(top))
+
+
+def phase_training(kernel_ms):
+    """GPT-2 small, the twin of bench.py main(): train steps at full
+    width, launches per step, loss, throughput, MFU, peak memory."""
+    import torch
+
+    from ray_tpu_torch.models import GPT, GPTConfig
+    from ray_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd
+
+    c = GPTConfig.small(use_flash=True)     # bf16 compute, f32 params
+    check((c.n_layer, c.d_model, c.n_head, c.head_dim, c.padded_vocab,
+           c.dropout) == (12, 768, 12, 64, 50304, 0.0),
+          f"not GPT-2 small width: {c}")
+    model = GPT(c)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = {n: p.requires_grad_() for n, p in model.init(gen).items()}
+    opt = torch.optim.AdamW(params.values(), lr=TRAIN_LR,
+                            weight_decay=TRAIN_WD)
+    tokens = torch.randint(0, c.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device="cuda")
+    targets = torch.roll(tokens, -1, dims=1)
+    num_chunks = TRAIN_BATCH * TRAIN_SEQ // HEAD_CHUNK_ROWS
+    port_loss, jax_head_loss = lm_head_losses(model, params, tokens,
+                                              targets, num_chunks)
+
+    losses, per_step = [], []
+
+    def step():
+        f0, b0 = flash_attention_fwd.launches, flash_attention_bwd.launches
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss_chunked(params, tokens, targets,
+                                  num_chunks=num_chunks)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+        per_step.append((flash_attention_fwd.launches - f0,
+                         flash_attention_bwd.launches - b0))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_fwd.launches = 0       # the training path starts here
+    flash_attention_bwd.launches = 0
+    for _ in range(TRAIN_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(flash_fwd=flash_attention_fwd.launches,
+                    flash_bwd=flash_attention_bwd.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    loss_values = [x.item() for x in losses]
+    prof = profile_step(step)      # a 14th step, after the counted ones
+    sec_per_step = dt / TRAIN_STEPS
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / sec_per_step
+    mfu = model.flops_per_token(TRAIN_SEQ) * tokens_per_s / H100_BF16_PEAK
+    split = dict(flash_fwd=c.n_layer * kernel_ms["flash_fwd"],
+                 flash_bwd=c.n_layer * kernel_ms["flash_bwd"])
+    split["rest"] = sec_per_step * 1e3 - split["flash_fwd"] \
+        - split["flash_bwd"]
+    out = {
+        "gpt2_small_train_tokens_per_sec_per_chip": tokens_per_s,
+        "mfu": mfu, "sec_per_step": sec_per_step,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps_timed": TRAIN_STEPS,
+        "params": model.num_params(), "loss": loss_values[-1],
+        "losses": loss_values,
+        "peak_memory_gib": peak_gib, "launches": launches,
+        "step_split_ms": split, "profile": prof,
+        "lm_head_loss": {"port_bf16_logits": port_loss,
+                         "f32_logits": jax_head_loss,
+                         "diff": port_loss - jax_head_loss},
+    }
+    print(f"[training] GPT-2 small ({model.num_params()} params) B="
+          f"{TRAIN_BATCH} S={TRAIN_SEQ}: {tokens_per_s:.1f} tokens/s, "
+          f"{sec_per_step * 1e3:.2f} ms/step, MFU {mfu:.4f} "
+          f"({model.flops_per_token(TRAIN_SEQ)} FLOP/token over "
+          f"{H100_BF16_PEAK:.0f} FLOP/s); losses "
+          f"{[round(x, 4) for x in loss_values]}; peak {peak_gib:.2f} GiB "
+          f"allocated; launches per step {sorted(set(per_step))}; step "
+          f"split (launches x kernel ms): flash_fwd "
+          f"{split['flash_fwd']:.2f} ms, flash_bwd {split['flash_bwd']:.2f} "
+          f"ms, rest {split['rest']:.2f} ms")
+    print(f"[training] step-0 loss with the port's bf16-rounded logits "
+          f"{port_loss:.6f}, with f32 logits (the JAX head) "
+          f"{jax_head_loss:.6f}, difference {port_loss - jax_head_loss:.3e}")
+    check(all(n == (c.n_layer, c.n_layer) for n in per_step),
+          f"launches (flash_fwd, flash_bwd) per step {per_step}, expected "
+          f"{c.n_layer} each")
+    check(all(math.isfinite(x) for x in loss_values),
+          f"non-finite loss {loss_values}")
+    loss0 = math.log(c.padded_vocab) + c.d_model * 0.02 ** 2 / 2
+    check(abs(loss_values[0] - loss0) <= TOL_LOSS0,
+          f"step-0 loss {loss_values[0]} is not ln({c.padded_vocab}) + "
+          f"{c.d_model} * 0.02^2 / 2 = {loss0:.4f} (tol {TOL_LOSS0})")
+    check(loss_values[-1] < loss_values[0],
+          f"loss did not fall: {loss_values}")
+    del opt
+    torch.cuda.empty_cache()
+    out["grad_check"] = phase_grad_check(model, params)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -493,7 +962,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
-    from ray_tpu_torch.ops import flash_attention_fwd
+    from ray_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd
     from ray_tpu_torch.serve.llm import LLMServer
 
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda}, "
@@ -503,7 +972,9 @@ def main() -> int:
     try:
         with torch.no_grad():
             card = phase_build()
-            rows = phase_kernels()
+            fwd_rows = phase_kernels_fwd()
+        bwd_rows = phase_kernels_bwd()
+        with torch.no_grad():
             t0 = time.perf_counter()
             server = LLMServer("llama2-7b", engine_config=ENGINE_CONFIG,
                                seed=SEED)
@@ -512,20 +983,40 @@ def main() -> int:
                   f"{time.perf_counter() - t0:.1f} s, "
                   f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB "
                   f"allocated")
-            flash_attention_fwd.launches = 0      # the main path starts here
+            flash_attention_fwd.launches = 0    # the serving path starts here
             forward = phase_forward(server)
             serving = phase_serving(server)
-            launches = flash_attention_fwd.launches
-            check(launches > 0, "the main path never launched flash_fwd")
+            serving_launches = flash_attention_fwd.launches
+            check(serving_launches > 0,
+                  "the serving path never launched flash_fwd")
+        server = None
+        serving_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[training] Llama-2-7B released: "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+        main_fwd = next(r for r in fwd_rows if r["label"] == FWD_MAIN)
+        main_bwd = next(r for r in bwd_rows if r["label"] == GPT_CASE)
+        gpt_fwd = next(r for r in fwd_rows if r["label"] == GPT_CASE)
+        training = phase_training({"flash_fwd": gpt_fwd["ms"],
+                                   "flash_bwd": main_bwd["ms"]})
+        for name, n in training["launches"].items():
+            check(n > 0, f"the training path never launched {name}")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         if server is not None:
             server.shutdown()
-    print(f"[memory] peak allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    main_row = next(r for r in rows if r["shape"][1] == 4096)
+    print(f"[memory] peak allocated: {serving_peak_gib:.1f} GiB up to the "
+          f"end of serving, {training['peak_memory_gib']:.1f} GiB in the "
+          f"training steps")
+    fwd_launches = dict(serving=serving_launches,
+                        training=training["launches"]["flash_fwd"])
+
+    def bf16_max_err(rows):
+        return max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
+
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_fwd.cu",
@@ -533,16 +1024,32 @@ def main() -> int:
         # the tiled one (S > 1024) and the single-block one (S <= 1024)
         "replaces": ["ray_tpu/ops/flash_attention.py:59",
                      "ray_tpu/ops/flash_attention.py:110"],
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows
-                           if r["dtype"] == "bfloat16"),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
+        "launches": sum(fwd_launches.values()),
+        "launches_by_path": fwd_launches,
+        "max_abs_err": bf16_max_err(fwd_rows),
+        "ms": main_fwd["ms"], "plain_ms": main_fwd["plain_ms"],
+        "bound_ms": main_fwd["bound_ms"], "bound_by": main_fwd["bound_by"],
+        "library_ms": main_fwd["library_ms"],
         "shape": "[1, 4096, 32, 128] bf16 causal",
-        "by_shape": rows,
+        "by_shape": fwd_rows,
+    }, {
+        "name": "flash_bwd", "route": "cuda",
+        "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+        # two CUDA kernels (dk/dv, then dq), one launch of the wrapper,
+        # compute the function of the three backward kernels
+        "replaces": ["ray_tpu/ops/flash_attention.py:229",
+                     "ray_tpu/ops/flash_attention.py:286",
+                     "ray_tpu/ops/flash_attention.py:330"],
+        "launches": training["launches"]["flash_bwd"],
+        "launches_by_path": {"training": training["launches"]["flash_bwd"]},
+        "max_abs_err": bf16_max_err(bwd_rows),
+        "ms": main_bwd["ms"], "plain_ms": main_bwd["plain_ms"],
+        "bound_ms": main_bwd["bound_ms"], "bound_by": main_bwd["bound_by"],
+        "library_ms": main_bwd["library_ms"],
+        "shape": "[40, 1024, 12, 64] bf16 causal",
+        "by_shape": bwd_rows,
     }]
-    summary = {"forward": forward, "serving": serving}
+    summary = {"forward": forward, "serving": serving, "training": training}
     print(f"[summary] {json.dumps(summary)}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,14 +1,16 @@
 """ray_tpu_torch.ops — counterpart of ray_tpu.ops.
 
-- flash_attention / flash_attention_fwd: the forward is a CUDA kernel
-  written for Hopper (csrc/flash_fwd.cu); CPU tensors run its plain
-  version, flash_attention_fwd_plain.
+- flash_attention (differentiable), flash_attention_fwd and
+  flash_attention_bwd: the forward and the backward are CUDA kernels
+  written for Hopper (csrc/flash_fwd.cu, csrc/flash_bwd.cu); CPU tensors
+  run their plain versions, flash_attention_{fwd,bwd}_plain.
 - mha_reference: the f32 oracle.
 - layers: rmsnorm, layernorm, gelu, rope, cross entropy (plain PyTorch).
 - paged_attention: the paged KV-cache primitives (plain PyTorch).
 """
 from .attention import mha_reference
-from .flash_attention import (flash_attention, flash_attention_fwd,
+from .flash_attention import (flash_attention, flash_attention_bwd,
+                              flash_attention_bwd_plain, flash_attention_fwd,
                               flash_attention_fwd_plain)
 from .layers import (apply_rope, cross_entropy_loss, gelu, layernorm,
                      rmsnorm, rope_cache)
@@ -18,6 +20,7 @@ from .paged_attention import (paged_attention_decode,
 
 __all__ = [
     "flash_attention", "flash_attention_fwd", "flash_attention_fwd_plain",
+    "flash_attention_bwd", "flash_attention_bwd_plain",
     "mha_reference", "rmsnorm", "layernorm", "gelu", "rope_cache",
     "apply_rope", "cross_entropy_loss",
     "paged_attention_decode", "paged_attention_prefill",

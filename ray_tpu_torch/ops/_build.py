@@ -5,7 +5,8 @@ compiled by ``nvcc`` for ``sm_90a`` into ``build/ray_tpu_torch/lib<name>.so``
 at the root of the checkout, at first use, from the sources in the
 checkout only. The library is loaded with ctypes. A build is redone when
 the source's SHA-256 differs from the one recorded beside the library.
-A failed build raises; nothing falls back to a plain version.
+``build`` compiles several sources at once, one ``nvcc`` each, all started
+together. A failed build raises; nothing falls back to a plain version.
 """
 from __future__ import annotations
 
@@ -40,27 +41,39 @@ def _digest(src: Path) -> str:
     return hashlib.sha256(src.read_bytes()).hexdigest()
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless the library beside its hash stamp
-    is current. Returns nvcc's ptxas report ('' when nothing was built).
-    Raises RuntimeError with nvcc's output if the build fails."""
-    src = SRC_DIR / f"{name}.cu"
-    lib = BUILD_DIR / f"lib{name}.so"
-    stamp = lib.with_suffix(".so.sha256")
-    digest = _digest(src)
-    if lib.exists() and stamp.exists() and stamp.read_text().strip() == digest:
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"CUDA kernel build of {src} failed (nvcc exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, lib)          # atomic: concurrent loaders see old or
-    stamp.write_text(digest)      # new, never a partial file
-    return proc.stdout
+def build(*names: str) -> Dict[str, str]:
+    """Compile each ``csrc/<name>.cu`` whose library beside its hash stamp
+    is not current, all at once. Returns {name: nvcc's ptxas report} ('' for
+    a library that was current). Raises RuntimeError with nvcc's output if
+    a build fails."""
+    started = {}
+    for name in names:
+        src = SRC_DIR / f"{name}.cu"
+        lib = BUILD_DIR / f"lib{name}.so"
+        stamp = lib.with_suffix(".so.sha256")
+        digest = _digest(src)
+        if lib.exists() and stamp.exists() \
+                and stamp.read_text().strip() == digest:
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(src)], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        started[name] = (proc, src, tmp, lib, stamp, digest)
+    reports = {name: "" for name in names}
+    failed = []
+    for name, (proc, src, tmp, lib, stamp, digest) in started.items():
+        reports[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"CUDA kernel build of {src} failed (nvcc exit "
+                          f"{proc.returncode}):\n{reports[name]}")
+            continue
+        os.replace(tmp, lib)          # atomic: concurrent loaders see old
+        stamp.write_text(digest)      # or new, never a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
 
 
 def load(name: str, argtypes: list) -> ctypes.CDLL:

@@ -14,13 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from ray_tpu import ops as jops
 from ray_tpu_torch import ops as tops
 
-# the module (ray_tpu.ops re-exports its function under the same name)
+# the modules (each ops package re-exports its function under the same
+# name)
 jflash_mod = importlib.import_module("ray_tpu.ops.flash_attention")
+fa_mod = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -211,6 +214,124 @@ def test_flash_odd_length_routes_to_mha_reference():
                                atol=F32_TOL, rtol=F32_TOL)
 
 
+# ---------------------------------------------------------------------------
+# flash attention backward: the port's autograd Function (plain route on
+# the CPU) against jax.vjp through the JAX Pallas backward kernels.
+# Gradient tolerances: 2e-4 in f32 (tests/test_ops.py:51), 3e-2 in bf16.
+
+GRAD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+# (seq, JAX block, the JAX backward kernel that this regime runs)
+BWD_REGIMES = [(128, 1024, "_bwd_fused_kernel"),
+               (256, 128, "_bwd_dq_kernel")]
+
+
+def _spy(monkeypatch, name):
+    """Count the calls of a JAX Pallas kernel body (made while the
+    interpreter traces it), to show the JAX side reached that kernel."""
+    calls = []
+    body = getattr(jflash_mod, name)
+
+    def spy(*args, **kw):
+        calls.append(name)
+        return body(*args, **kw)
+
+    monkeypatch.setattr(jflash_mod, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seq,block,kernel", BWD_REGIMES)
+def test_flash_grads_match_jax_pallas(seq, block, kernel, causal, dtype,
+                                      monkeypatch):
+    q, k, v = _qkv(9, b=1, s=seq, h=2)
+    g = np.random.default_rng(10).standard_normal(q.shape, dtype=np.float32)
+    (jq, tq), (jk, tk), (jv, tv), (jg, tg) = (_both(a, dtype)
+                                              for a in (q, k, v, g))
+    calls = _spy(monkeypatch, kernel)
+    _, vjp = jax.vjp(lambda a, b_, c: jops.flash_attention(
+        a, b_, c, causal=causal, block_q=block, block_k=block), jq, jk, jv)
+    want = vjp(jg)
+    assert calls, f"the JAX backward did not reach {kernel}"
+    leaves = [t.requires_grad_() for t in (tq, tk, tv)]
+    out = tops.flash_attention(*leaves, causal=causal)
+    got = torch.autograd.grad(out, leaves, tg)
+    tol = GRAD_TOL[dtype]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == tq.dtype, name
+        np.testing.assert_allclose(_np(a), _np(b), atol=tol, rtol=tol,
+                                   err_msg=name)
+
+
+def _to_bhsd(a):
+    b, s, h, d = a.shape
+    return a.transpose(0, 2, 1, 3).reshape(b * h, s, d)
+
+
+def _from_bhsd(a, b, h):
+    bh, s, d = a.shape
+    return np.ascontiguousarray(
+        np.asarray(a, np.float32).reshape(b, h, s, d).transpose(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seq,block,kernel", BWD_REGIMES)
+def test_flash_bwd_plain_matches_jax_flash_bwd_bf16(seq, block, kernel,
+                                                    causal):
+    """The plain backward against the JAX package's _flash_bwd on the
+    same bf16 residuals (out and lse from the JAX forward kernel), where
+    the rounding points matter: q*scale, p and ds in bf16, products
+    accumulated in f32."""
+    q, k, v = _qkv(11, b=1, s=seq, h=2)
+    b, s, h, d = q.shape
+    g = np.random.default_rng(12).standard_normal(q.shape, dtype=np.float32)
+    scale = 1.0 / np.sqrt(d)
+    jq, jk, jv, jg = (jnp.asarray(_to_bhsd(a), jnp.bfloat16)
+                      for a in (q, k, v, g))
+    j_out, j_lse = jflash_mod._flash_fwd(jq, jk, jv, scale, causal, block,
+                                         block)
+    want = jflash_mod._flash_bwd(jq, jk, jv, j_out, j_lse, jg, scale, causal,
+                                 block, block)
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    got = tops.flash_attention_bwd_plain(
+        *(bf(a) for a in (q, k, v, _from_bhsd(j_out, b, h))),
+        torch.from_numpy(np.array(j_lse, np.float32).reshape(b, h, s)),
+        bf(g), causal)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16, name
+        np.testing.assert_allclose(_np(a), _from_bhsd(w, b, h),
+                                   atol=GRAD_TOL["bfloat16"],
+                                   rtol=GRAD_TOL["bfloat16"], err_msg=name)
+
+
+def test_flash_backward_uses_saved_residuals(monkeypatch):
+    """The backward runs from (q, k, v, out, lse) saved by the forward and
+    never runs the forward again."""
+    fwd_calls, bwd_calls = [], []
+    fwd, bwd = fa_mod.flash_attention_fwd_plain, fa_mod.flash_attention_bwd
+    monkeypatch.setattr(fa_mod, "flash_attention_fwd_plain",
+                        lambda *a: fwd_calls.append(1) or fwd(*a))
+    monkeypatch.setattr(fa_mod, "flash_attention_bwd",
+                        lambda *a: bwd_calls.append(a) or bwd(*a))
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv(13, b=1, s=128, h=2))
+    out = tops.flash_attention(q, k, v)
+    out.transpose(1, 2).sum().backward()       # a strided output gradient
+    assert len(fwd_calls) == 1 and len(bwd_calls) == 1
+    saved_q, _, _, saved_out, saved_lse, do = bwd_calls[0][:6]
+    assert saved_q is q and torch.equal(saved_out, out)
+    assert saved_lse.shape == (1, 2, 128) and do.is_contiguous()
+
+
+def test_flash_bwd_checks_its_inputs():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(14, b=1, s=128, h=2))
+    out, lse = tops.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="lse"):
+        tops.flash_attention_bwd(q, k, v, out, lse[:, :1], out)
+    with pytest.raises(ValueError, match="do"):
+        tops.flash_attention_bwd(q, k, v, out, lse, out[:, :64])
+
+
 def test_flash_fwd_has_no_fallback_off_cpu():
     """A tensor that is not on the CPU never gets the plain version: the
     wrapper launches the kernel or raises (here: no kernel for 'meta')."""
@@ -219,6 +340,11 @@ def test_flash_fwd_has_no_fallback_off_cpu():
     with pytest.raises(ValueError, match="no kernel"):
         tops.flash_attention_fwd(q, q, q)
     assert tops.flash_attention_fwd.launches == before
+    lse = torch.empty((1, 2, 128), device="meta")
+    before = tops.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        tops.flash_attention_bwd(q, q, q, q, lse, q)
+    assert tops.flash_attention_bwd.launches == before
 
 
 # ---------------------------------------------------------------------------

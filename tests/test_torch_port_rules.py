@@ -54,7 +54,8 @@ def test_port_files_exist():
     for want in ("ray_tpu_torch/__init__.py", "chip_smoke.py",
                  *NO_TRY_FILES):
         assert want in names
-    assert (ROOT / "ray_tpu_torch" / "csrc" / "flash_fwd.cu").exists()
+    for kernel in ("flash_fwd.cu", "flash_bwd.cu"):
+        assert (ROOT / "ray_tpu_torch" / "csrc" / kernel).exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
