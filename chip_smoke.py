@@ -5,15 +5,20 @@
 
 Phases, each of which exits non-zero on failure:
 
-1. build    — compile ray_tpu_torch/csrc/flash_fwd.cu and flash_bwd.cu
-              with nvcc for sm_90a, one nvcc each, started together;
-              print the card's name and power limit.
+1. build    — compile ray_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu,
+              ln_matmul.cu and mm_res.cu with nvcc for sm_90a, one nvcc
+              each, started together; print the card's name and power
+              limit.
 2. kernels  — each kernel against its plain PyTorch version on the same
               inputs at the main paths' shapes, with the tolerances below,
               and a planted lower-precision control that must fail them;
               kernel, plain and library-call times with CUDA events, and the
               card's bound for the same work; then, untimed, at the shapes
-              and types that reach the kernels' other instances.
+              and types that reach the kernels' other instances. The fused
+              block entry and exit (ln_matmul, mm_res) at GPT-2 small's four
+              training shapes, timed beside the cuBLAS composition of the
+              same function; and matmul_residual's bf16 backward products
+              against the f32 products they stand for.
 3. forward  — Llama-2-7B at full width (32 layers, d_model 4096, 32 heads,
               bf16, random weights from seed 0): `apply` on [1, 1024] and
               [1, 4096] tokens must launch the flash kernel once per layer
@@ -32,10 +37,16 @@ Phases, each of which exits non-zero on failure:
               gradient check at B=4: every parameter's gradient against the
               same model through mha_reference, which three planted
               backward faults must fail.
+6. fused    — the same training with GPTConfig(fused_entry_exit=True):
+              each step launches ln_matmul and mm_res twice per layer and
+              the flash kernels once; the same loss checks; then a
+              gradient check at B=4 against the unfused model, which two
+              planted faults in the fused backward must fail.
 
-Two main paths are counted: serving (phases 3-4) and training (phase 5's
-steps). The launch counts are zeroed just before each and read just after
-it; the kernel comparisons of phase 2 and the gradient check do not count.
+Three main paths are counted: serving (phases 3-4), training (phase 5's
+steps) and fused training (phase 6's steps). Every launch count is zeroed
+just before each and read just after it; the kernel comparisons of phase
+2 and the gradient checks do not count.
 The last three lines are the card (as nvidia-smi prints it), the kernels
 JSON line and the result JSON line. Without a CUDA device, or without the
 ray_tpu_torch package beside this file, the script fails before printing
@@ -57,6 +68,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "ln_matmul", "mm_res")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel call
 # is max(bytes / bandwidth, operations / peak rate of the operand type).
@@ -125,6 +137,34 @@ ZERO_GRADIENT = "b_qkv[k]"
 TRAIN_FAULTS = ("delta left out", "causal mask off",
                 "sm_scale left out of ds")
 BWD_CONTROL = "ds in float8_e4m3"
+#   ln_matmul and mm_res outputs: the largest error over the largest |ref|
+#     (bf16 1e-2: a rounding flip moves one output by one ulp, at most
+#     2^-7 of the largest |ref|; f32 1e-5, summation order only, over up
+#     to 6400 terms), and the root mean square of the error over that of
+#     ref (bf16 3e-3: flips are rare, so this stays far below the ulp;
+#     f32 1e-5). The control, the normalised row (ln_matmul) or a
+#     (mm_res) rounded to float8_e4m3 before the product (a
+#     lower-precision product), must fail one of the checks.
+TOL_FUSED = {"bfloat16": 1e-2, "float32": 1e-5}
+TOL_FUSED_RMS = {"bfloat16": 3e-3, "float32": 1e-5}
+#   GPT-2 small gradients at B=4, S=1024, fused model against the unfused
+#   one (both flash, bf16): each parameter's ||g - g_ref|| / ||g_ref|| at
+#   most TOL_FUSED_GRAD, b_qkv's key third left out as above. The paths
+#   round at other places: the fused entry and exit add the bias (and the
+#   residual) in f32 before one rounding, the unfused path rounds the
+#   product and then adds in bf16, so every activation differs by
+#   roundings, which the flash backward's bf16 ds amplifies in the q and
+#   k thirds of w_qkv. The fused training phase reads two planted faults
+#   in the fused backward, swapped in as its plain backward functions,
+#   and fails unless each of them fails this check. A third, the
+#   layernorm backward without its mean term, is read and printed but not
+#   required to fail: at this random init the mean of dxhat = (dout .
+#   w^T) * g over a row is near zero, so leaving it out moves the
+#   gradients (4.7e-2 in the q third of w_qkv) about as much as the
+#   rounding noise of the sound run (4.1e-2) does.
+TOL_FUSED_GRAD = 0.1
+FUSED_FAULTS = ("dres dropped", "layernorm backward without its variance term")
+FUSED_SHOWN = ("layernorm backward without its mean term",)
 
 # Timed kernel cases: (label, [B, S, H, D], dtype, causal)
 GPT_CASE = "GPT-2 training"    # the training path's attention shape
@@ -155,6 +195,31 @@ FWD_CHECKS = [
 BWD_CHECKS = FWD_CHECKS + [
     ("bf16 hd128", (1, 256, 4, 128), 256, "bfloat16", True),
 ]
+# Fused block entry and exit at GPT-2 small's training shapes (B*S = 40960
+# rows): (label, kernel, N, K, F). ln_matmul: LN1 + QKV, LN2 + FC; mm_res:
+# attention projection + residual, MLP out + residual.
+FUSED_CASES = [
+    ("QKV", "ln_matmul", 40960, 768, 2304),
+    ("FC", "ln_matmul", 40960, 768, 3072),
+    ("proj", "mm_res", 40960, 768, 768),
+    ("MLP out", "mm_res", 40960, 3072, 768),
+]
+FUSED_MAIN = {"ln_matmul": "FC", "mm_res": "MLP out"}
+# Checked against the plain version but not timed: every main shape in
+# f32, a row count that is not a multiple of 64, and widths other than
+# GPT-2 small's (d_model 64; GPT-2 xl's 1600 and 6400, whose F leaves the
+# last 128-column tile half full). (label, kernel, N, K, F, dtype)
+FUSED_CHECKS = [(f"{label} f32", kernel, n, k, f, "float32")
+                for label, kernel, n, k, f in FUSED_CASES] + [
+    ("ragged N", "ln_matmul", 1000, 768, 2304, "bfloat16"),
+    ("ragged N", "mm_res", 1000, 3072, 768, "bfloat16"),
+    ("D=64", "ln_matmul", 256, 64, 192, "bfloat16"),
+    ("D=64", "mm_res", 256, 64, 192, "bfloat16"),
+    ("xl D=1600", "ln_matmul", 512, 1600, 4800, "bfloat16"),
+    ("xl K=6400", "mm_res", 512, 6400, 1600, "bfloat16"),
+    ("ragged xl f32", "ln_matmul", 300, 1600, 4800, "float32"),
+    ("ragged D=64 f32", "mm_res", 300, 64, 192, "float32"),
+]
 # GPT-2 small training, as bench.py main(): batch, length, LM-head chunk
 # rows, optimizer, warm-up and timed steps; the gradient check's batch.
 TRAIN_BATCH, TRAIN_SEQ, HEAD_CHUNK_ROWS = 40, 1024, 4096
@@ -170,6 +235,8 @@ TOL_LOSS0 = 0.05
 # Device kernels of a profiled step, by class: (class, name fragments).
 KERNEL_CLASSES = (("flash_fwd", ("flash_fwd_kernel",)),
                   ("flash_bwd", ("flash_bwd_",)),
+                  ("ln_matmul", ("ln_matmul_kernel",)),
+                  ("mm_res", ("mm_res_kernel",)),
                   ("matmul", ("gemm", "nvjet", "xmma", "cutlass")),
                   ("optimizer", ("multi_tensor_apply",)))
 ENGINE_CONFIG = dict(max_batch=8, num_blocks=256, block_size=16,
@@ -304,6 +371,177 @@ def bwd_variant(q, k, v, out, lse, do, causal, sm_scale, fault):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def fused_bound(kernel, n, k, f, dtype):
+    """(ms, 'bytes'|'operations') the card needs at least for one call of
+    ln_matmul (x [n, k], g, b [k] f32, w [k, f], wb [f]) or mm_res (a
+    [n, k], w [k, f], b [f], res [n, f]): each input read once, the output
+    [n, f] written once; the product's 2*n*k*f FLOPs at the operand type's
+    rate (the layernorm's and the epilogue's f32 work, under 0.5 GFLOP at
+    these shapes, takes less time at the f32 rate than the product)."""
+    itemsize = 2 if dtype == "bfloat16" else 4
+    if kernel == "ln_matmul":
+        moved = (n * k + k * f + f + n * f) * itemsize + 2 * k * 4
+    else:
+        moved = (n * k + k * f + f + 2 * n * f) * itemsize
+    t_bytes = moved / PEAK_BYTES_PER_S
+    t_ops = 2 * n * k * f / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def fused_inputs(kernel, n, k, f, dtype, seed):
+    """Inputs on the card at the model's scales: ln_matmul's x with an
+    offset (so the mean matters), g and b f32 parameters near one and
+    zero, w and wb at the init's std 0.02; mm_res's a and res standard
+    normal, w and b at std 0.02."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def r(*shape, dt=dtype):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=getattr(torch, dt))
+
+    if kernel == "ln_matmul":
+        return (r(n, k) * 2 + 0.5, 1 + 0.1 * r(k, dt="float32"),
+                0.1 * r(k, dt="float32"), 0.02 * r(k, f), 0.02 * r(f))
+    return r(n, k), 0.02 * r(k, f), 0.02 * r(f), r(n, f)
+
+
+def fused_errors(out, ref):
+    """(max abs error over max |ref|, rms error over rms ref)."""
+    diff = out.float() - ref.float()
+    ref = ref.float()
+    return ((diff.abs().max() / ref.abs().max()).item(),
+            (diff.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item())
+
+
+def fused_agrees(scaled, rms, dtype):
+    return scaled <= TOL_FUSED[dtype] and rms <= TOL_FUSED_RMS[dtype]
+
+
+def fused_control(kernel, args):
+    """Control: the plain version with the normalised row (ln_matmul) or a
+    (mm_res) rounded to float8_e4m3 before the product."""
+    import torch
+
+    from ray_tpu_torch.ops.fused import _ln_ref
+
+    f8 = torch.float8_e4m3fn
+    if kernel == "ln_matmul":
+        x, g, b, w, wb = args
+        h = _ln_ref(x, g, b, 1e-5).to(f8).float()
+        return (h @ w.float() + wb.float()).to(x.dtype)
+    a, w, b, res = args
+    return (a.to(f8).float() @ w.float() + b.float()
+            + res.float()).to(a.dtype)
+
+
+def phase_kernels_fused():
+    """ln_matmul and mm_res against their plain versions at the training
+    path's shapes, timed beside the plain version and beside the cuBLAS
+    composition of the same function (there is no single PyTorch call:
+    addmm(wb, layer_norm(x), w) and addmm(res + b, a, w)); untimed checks
+    at f32 and at other shapes; then matmul_residual's backward products
+    in bf16 against the f32 products they stand for."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import (ln_matmul_fwd, ln_matmul_plain,
+                                   matmul_residual_fwd, matmul_residual_plain)
+
+    fns = {"ln_matmul": (ln_matmul_fwd, ln_matmul_plain),
+           "mm_res": (matmul_residual_fwd, matmul_residual_plain)}
+    rows = []
+    cases = [(label, kernel, n, k, f, "bfloat16", True)
+             for label, kernel, n, k, f in FUSED_CASES]
+    cases += [(*case, False) for case in FUSED_CHECKS]
+    for i, (label, kernel, n, k, f, dtype, timed) in enumerate(cases):
+        args = fused_inputs(kernel, n, k, f, dtype, SEED + 200 + i)
+        fn, plain = fns[kernel]
+        out = fn(*args)
+        torch.cuda.synchronize()
+        ref = plain(*args)
+        check(out.shape == (n, f) and out.dtype == args[0].dtype,
+              f"{kernel} {label}: output {tuple(out.shape)} {out.dtype}")
+        check(bool(torch.isfinite(out.float()).all()),
+              f"{kernel} {label}: non-finite output")
+        err_abs = (out.float() - ref.float()).abs().max().item()
+        scaled, rms = fused_errors(out, ref)
+        text = (f"{kernel} {label} [{n}, {k}] x [{k}, {f}] {dtype}: max abs "
+                f"err {err_abs:.3e}, scaled {scaled:.3e} (tol "
+                f"{TOL_FUSED[dtype]}), rms {rms:.3e} (tol "
+                f"{TOL_FUSED_RMS[dtype]})")
+        row = dict(label=label, kernel=kernel, shape=[n, k, f], dtype=dtype,
+                   max_abs_err=err_abs, scaled_err=scaled, rms_err=rms)
+        control = None
+        if timed:
+            control = fused_errors(fused_control(kernel, args), ref)
+            ms = cuda_ms(lambda: fn(*args), reps=20)
+            plain_ms = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
+            if kernel == "ln_matmul":
+                x, g, b, w, wb = args
+                gc_, bc_ = g.to(x.dtype), b.to(x.dtype)
+                lib_ms = cuda_ms(lambda: torch.addmm(
+                    wb, F.layer_norm(x, (k,), gc_, bc_), w), reps=20)
+            else:
+                a, w, b, res = args
+                lib_ms = cuda_ms(lambda: torch.addmm(res + b, a, w), reps=20)
+            bound_ms, bound_by = fused_bound(kernel, n, k, f, dtype)
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       control_scaled_err=control[0],
+                       control_rms_err=control[1])
+            text += (f"; control (float8 operand): scaled {control[0]:.3e}, "
+                     f"rms {control[1]:.3e}; kernel {ms:.4f} ms, plain "
+                     f"{plain_ms:.4f} ms, cuBLAS composition {lib_ms:.4f} "
+                     f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+        print(f"[kernels] {text}")
+        check(fused_agrees(scaled, rms, dtype),
+              f"{kernel} {label} disagrees with its plain version")
+        check(control is None or not fused_agrees(*control, dtype),
+              f"{kernel} {label}: the float8 control passes the check")
+        rows.append(row)
+        del args, out, ref
+        torch.cuda.empty_cache()
+    return rows, fused_bwd_products()
+
+
+def fused_bwd_products():
+    """matmul_residual's backward at the MLP-out shape, bf16: da and dw as
+    bf16 products (f32 accumulation), the route the port takes, against
+    the f32 products of the same bf16 values rounded once, the JAX
+    package's route; both timed."""
+    import torch
+
+    from ray_tpu_torch.ops.fused import matmul_residual_bwd
+
+    _, _, n, k, f = next(c for c in FUSED_CASES if c[0] == "MLP out")
+    a, w, _, dout = fused_inputs("mm_res", n, k, f, "bfloat16", SEED + 300)
+
+    def f32_route():
+        d32 = dout.float()
+        return ((d32 @ w.float().T).to(a.dtype),
+                (a.float().T @ d32).to(w.dtype))
+
+    got, want = matmul_residual_bwd(a, w, dout)[:2], f32_route()
+    errs = {name: fused_errors(g, r)
+            for name, g, r in zip(("da", "dw"), got, want)}
+    bf16_ms = cuda_ms(lambda: matmul_residual_bwd(a, w, dout), reps=10)
+    f32_ms = cuda_ms(f32_route, reps=3, warmup=1)
+    print(f"[kernels] matmul_residual backward [{n}, {k}] x [{k}, {f}]: "
+          f"bf16 products vs f32 products rounded to bf16: "
+          + ", ".join(f"{name} scaled {e[0]:.3e}, rms {e[1]:.3e}"
+                      for name, e in errs.items())
+          + f" (tol {TOL_FUSED['bfloat16']}, {TOL_FUSED_RMS['bfloat16']}); "
+          f"bf16 route {bf16_ms:.4f} ms, f32 route {f32_ms:.4f} ms")
+    check(all(fused_agrees(*e, "bfloat16") for e in errs.values()),
+          "matmul_residual's bf16 backward products disagree with the f32 "
+          "products")
+    return dict(errors=errs, bf16_ms=bf16_ms, f32_ms=f32_ms)
+
+
 def logits_errors(got, ref):
     """Max abs difference, and max abs and root mean square of the
     difference over the reference's std."""
@@ -343,13 +581,14 @@ def phase_build():
     from ray_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    reports = _build.build("flash_fwd", "flash_bwd")
+    reports = _build.build(*KERNEL_SOURCES)
     build_s = time.perf_counter() - t0
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    print(f"[build] flash_fwd and flash_bwd built together in {build_s:.2f} s")
+    print(f"[build] {', '.join(KERNEL_SOURCES)} built together in "
+          f"{build_s:.2f} s")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -699,6 +938,22 @@ def phase_serving(server):
     return out
 
 
+def lm_head_out_dtype_probe():
+    """Whether this torch differentiates torch.mm(x, w.T,
+    out_dtype=float32) on bf16 operands, the product that would keep the
+    LM head's f32 accumulation (ROADMAP C): a string to print."""
+    import torch
+
+    x = torch.randn(64, 64, device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    try:
+        y = torch.mm(x, x.detach().T, out_dtype=torch.float32)
+        y.sum().backward()
+    except (RuntimeError, TypeError) as e:
+        return f"no: {type(e).__name__}: {str(e)[:120]}"
+    return f"yes (out {y.dtype}, grad {x.grad.dtype})"
+
+
 def lm_head_losses(model, params, tokens, targets, num_chunks):
     """(loss with the port's LM head, whose bf16 product rounds the logits
     to bf16, and loss with the JAX model's head, the same bf16 operands
@@ -719,17 +974,38 @@ def lm_head_losses(model, params, tokens, targets, num_chunks):
     return port, total / n
 
 
-def phase_grad_check(model, params):
+def ln_matmul_bwd_variant(x, g, b, w, dout, eps, fault):
+    """Control: ln_matmul_bwd with one term of the layernorm backward
+    left out of dx: the mean of dxhat over the row ("mean"), or xhat times
+    the mean of dxhat * xhat ("variance")."""
+    xf = x.float()
+    xc = xf - xf.mean(-1, keepdim=True)
+    rstd = (xc.square().mean(-1, keepdim=True) + eps).rsqrt()
+    xhat = xc * rstd
+    h = (xhat * g.float() + b.float()).to(w.dtype)
+    d = dout.to(w.dtype)
+    dh = (d @ w.T).float()
+    dxhat = dh * g.float()
+    mean_term = 0.0 if fault == "mean" else dxhat.mean(-1, keepdim=True)
+    var_term = 0.0 if fault == "variance" else \
+        xhat * (dxhat * xhat).mean(-1, keepdim=True)
+    dx = rstd * (dxhat - mean_term - var_term)
+    return (dx.to(x.dtype), (dh * xhat).sum(0).to(g.dtype),
+            dh.sum(0).to(b.dtype), (h.T @ d).to(w.dtype),
+            dout.float().sum(0).to(x.dtype))
+
+
+def grad_check(label, what, model, ref_model, params, counters, faults,
+               tol, shown=()):
     """Every parameter's gradient of loss_chunked at [GRAD_BATCH, 1024],
-    flash model against the same model through mha_reference, and the
-    same check on three planted backward faults, each swapped into the
-    autograd Function in place of flash_attention_bwd."""
+    ``model`` against ``ref_model`` on the same params, and the same check
+    on planted backward faults, each {name: (module, attribute,
+    replacement)} swapped in for one gradient; each must fail the check,
+    except those named in ``shown``, which are only printed. ``counters``
+    are the kernels the model must launch for each layer ({name:
+    (wrapper, launches per layer)})."""
     import torch
 
-    from ray_tpu_torch.models import GPT
-    from ray_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd
-
-    fa_mod = importlib.import_module("ray_tpu_torch.ops.flash_attention")
     c = model.config
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
@@ -744,7 +1020,7 @@ def phase_grad_check(model, params):
         return loss.item(), torch.autograd.grad(
             loss, [params[n] for n in names])
 
-    ref_loss, ref = grads(GPT(dataclasses.replace(c, use_flash=False)))
+    ref_loss, ref = grads(ref_model)
 
     def rel_errors(g):
         """||g - g_ref|| / ||g_ref|| per parameter; w_qkv and b_qkv per
@@ -760,24 +1036,23 @@ def phase_grad_check(model, params):
                     out[key] = ((x - y).norm() / y.norm()).item()
         return out
 
-    before = flash_attention_fwd.launches, flash_attention_bwd.launches
+    before = {n: f.launches for n, (f, _) in counters.items()}
     loss, g = grads(model)
-    launched = (flash_attention_fwd.launches - before[0],
-                flash_attention_bwd.launches - before[1])
-    check(launched == (c.n_layer, c.n_layer),
-          f"gradient check launched (flash_fwd, flash_bwd) {launched}, "
-          f"expected {c.n_layer} each")
+    launched = {n: f.launches - before[n] for n, (f, _) in counters.items()}
+    expected = {n: per_layer * c.n_layer
+                for n, (_, per_layer) in counters.items()}
+    check(launched == expected, f"gradient check launched {launched}, "
+                                f"expected {expected}")
     sound = rel_errors(g)
     del g
     controls = {}
-    for fault in TRAIN_FAULTS:
-        fa_mod.flash_attention_bwd = (
-            lambda q, k, v, out, lse, do, causal, sm_scale, fault=fault:
-            bwd_variant(q, k, v, out, lse, do, causal, sm_scale, fault))
+    for fault, (module, attr, replacement) in faults.items():
+        original = getattr(module, attr)
+        setattr(module, attr, replacement)
         try:
             controls[fault] = rel_errors(grads(model)[1])
         finally:
-            fa_mod.flash_attention_bwd = flash_attention_bwd
+            setattr(module, attr, original)
 
     def worst(errs):   # NaN counts as the worst
         name = max(errs, key=lambda n: math.inf if math.isnan(errs[n])
@@ -785,27 +1060,75 @@ def phase_grad_check(model, params):
         return name, errs[name]
 
     def agrees(errs):
-        return all(e <= TOL_TRAIN_GRAD for e in errs.values())
+        return all(e <= tol for e in errs.values())
 
-    print(f"[training] gradient check [{GRAD_BATCH}, {TRAIN_SEQ}], flash "
-          f"vs mha_reference model: loss {loss:.6f} vs {ref_loss:.6f}; "
+    print(f"[{label}] gradient check [{GRAD_BATCH}, {TRAIN_SEQ}], {what}: "
+          f"loss {loss:.6f} vs {ref_loss:.6f}; "
           f"worst ||g - g_ref|| / ||g_ref|| {worst(sound)[1]:.4e} "
-          f"({worst(sound)[0]}; tol {TOL_TRAIN_GRAD}); per parameter "
+          f"({worst(sound)[0]}; tol {tol}); per parameter "
           f"{json.dumps({n: round(e, 6) for n, e in sound.items()})}")
     for fault, errs in controls.items():
-        print(f"[training] control, backward with {fault}: worst "
+        print(f"[{label}] control{' (shown only)' if fault in shown else ''}"
+              f", backward with {fault}: worst "
               f"{worst(errs)[1]:.4e} ({worst(errs)[0]}); per parameter "
               f"{json.dumps({n: float(f'{e:.4g}') for n, e in errs.items()})}")
-    check(agrees(sound), "flash model gradients disagree with the "
-                         "mha_reference model's")
+    check(agrees(sound), f"{label}: model gradients disagree with the "
+                         "reference model's")
     for fault, errs in controls.items():
-        check(not agrees(errs), f"control '{fault}' passes the gradient "
-                                "check")
+        check(fault in shown or not agrees(errs),
+              f"control '{fault}' passes the gradient check")
     return dict(loss=loss, ref_loss=ref_loss, rel_err=sound,
                 controls={f: worst(e)[1] for f, e in controls.items()})
 
 
-def profile_step(step):
+def phase_grad_check(model, params):
+    """The flash model against the same model through mha_reference, with
+    three planted faults swapped in for flash_attention_bwd."""
+    from ray_tpu_torch.models import GPT
+    from ray_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd
+
+    fa_mod = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    faults = {fault: (fa_mod, "flash_attention_bwd",
+                      lambda q, k, v, out, lse, do, causal, sm_scale,
+                      fault=fault: bwd_variant(q, k, v, out, lse, do, causal,
+                                               sm_scale, fault))
+              for fault in TRAIN_FAULTS}
+    return grad_check(
+        "training", "flash vs mha_reference model", model,
+        GPT(dataclasses.replace(model.config, use_flash=False)), params,
+        {"flash_fwd": (flash_attention_fwd, 1),
+         "flash_bwd": (flash_attention_bwd, 1)}, faults, TOL_TRAIN_GRAD)
+
+
+def phase_fused_grad_check(model, params):
+    """The fused model against the unfused model (both flash), with
+    planted faults in the fused backward: matmul_residual's dres dropped,
+    and ln_matmul's layernorm backward without its variance term (both
+    must fail the check) or without its mean term (shown only)."""
+    import torch
+
+    from ray_tpu_torch.models import GPT
+    from ray_tpu_torch.ops import ln_matmul_fwd, matmul_residual_fwd
+
+    fused_mod = importlib.import_module("ray_tpu_torch.ops.fused")
+    mr_bwd = fused_mod.matmul_residual_bwd
+    faults = dict(zip(FUSED_FAULTS + FUSED_SHOWN, [
+        (fused_mod, "matmul_residual_bwd",
+         lambda a, w, dout: (*mr_bwd(a, w, dout)[:3],
+                             torch.zeros_like(dout))),
+        (fused_mod, "ln_matmul_bwd",
+         lambda *args: ln_matmul_bwd_variant(*args, "variance")),
+        (fused_mod, "ln_matmul_bwd",
+         lambda *args: ln_matmul_bwd_variant(*args, "mean"))]))
+    return grad_check(
+        "training fused", "fused vs unfused model", model,
+        GPT(dataclasses.replace(model.config, fused_entry_exit=False)),
+        params, {"ln_matmul": (ln_matmul_fwd, 2),
+                 "mm_res": (matmul_residual_fwd, 2)}, faults,
+        TOL_FUSED_GRAD, shown=FUSED_SHOWN)
+
+
+def profile_step(step, label):
     """One training step under torch.profiler: device time by kernel
     class and the device's idle share of the step (the profiler's own
     host cost is inside the step's wall time)."""
@@ -833,26 +1156,31 @@ def profile_step(step):
         by_class[name] += ms
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    print(f"[training] profiled step: {wall_ms:.2f} ms wall, device busy "
+    print(f"[{label}] profiled step: {wall_ms:.2f} ms wall, device busy "
           f"{busy:.2f} ms (idle share {1 - busy / wall_ms:.4f}), "
           f"{len(kernels)} distinct kernels; device ms by class "
           f"{json.dumps({n: round(t, 3) for n, t in by_class.items()})}")
     for key, ms in top:
-        print(f"[training]   {ms:9.3f} ms  {key[:110]}")
+        print(f"[{label}]   {ms:9.3f} ms  {key[:110]}")
     return dict(wall_ms=wall_ms, device_busy_ms=busy,
                 idle_share=1 - busy / wall_ms, device_ms_by_class=by_class,
                 top_kernels_ms=dict(top))
 
 
-def phase_training(kernel_ms):
+def phase_training(kernel_ms, fused=False):
     """GPT-2 small, the twin of bench.py main(): train steps at full
-    width, launches per step, loss, throughput, MFU, peak memory."""
+    width, launches per step, loss, throughput, MFU, peak memory. With
+    ``fused``, through GPTConfig(fused_entry_exit=True). ``kernel_ms``:
+    the kernel phase's ms of each kernel's calls in one layer's forward
+    and backward."""
     import torch
 
     from ray_tpu_torch.models import GPT, GPTConfig
-    from ray_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd
+    from ray_tpu_torch.ops import (flash_attention_bwd, flash_attention_fwd,
+                                   ln_matmul_fwd, matmul_residual_fwd)
 
-    c = GPTConfig.small(use_flash=True)     # bf16 compute, f32 params
+    label = "training fused" if fused else "training"
+    c = GPTConfig.small(use_flash=True, fused_entry_exit=fused)
     check((c.n_layer, c.d_model, c.n_head, c.head_dim, c.padded_vocab,
            c.dropout) == (12, 768, 12, 64, 50304, 0.0),
           f"not GPT-2 small width: {c}")
@@ -866,26 +1194,33 @@ def phase_training(kernel_ms):
                            generator=gen, device="cuda")
     targets = torch.roll(tokens, -1, dims=1)
     num_chunks = TRAIN_BATCH * TRAIN_SEQ // HEAD_CHUNK_ROWS
-    port_loss, jax_head_loss = lm_head_losses(model, params, tokens,
-                                              targets, num_chunks)
-
+    if not fused:
+        port_loss, jax_head_loss = lm_head_losses(model, params, tokens,
+                                                  targets, num_chunks)
+    # every kernel's wrapper, and its launches a step on this path
+    counters = {"flash_fwd": flash_attention_fwd,
+                "flash_bwd": flash_attention_bwd, "ln_matmul": ln_matmul_fwd,
+                "mm_res": matmul_residual_fwd}
+    per_layer = {"flash_fwd": 1, "flash_bwd": 1,
+                 "ln_matmul": 2 if fused else 0, "mm_res": 2 if fused else 0}
+    expected = {n: k * c.n_layer for n, k in per_layer.items()}
     losses, per_step = [], []
 
     def step():
-        f0, b0 = flash_attention_fwd.launches, flash_attention_bwd.launches
+        before = {n: f.launches for n, f in counters.items()}
         opt.zero_grad(set_to_none=True)
         loss = model.loss_chunked(params, tokens, targets,
                                   num_chunks=num_chunks)
         loss.backward()
         opt.step()
         losses.append(loss.detach())
-        per_step.append((flash_attention_fwd.launches - f0,
-                         flash_attention_bwd.launches - b0))
+        per_step.append({n: f.launches - before[n]
+                         for n, f in counters.items()})
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_fwd.launches = 0       # the training path starts here
-    flash_attention_bwd.launches = 0
+    for f in counters.values():            # this training path starts here
+        f.launches = 0
     for _ in range(TRAIN_WARMUP):
         step()
     torch.cuda.synchronize()
@@ -894,46 +1229,53 @@ def phase_training(kernel_ms):
         step()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(flash_fwd=flash_attention_fwd.launches,
-                    flash_bwd=flash_attention_bwd.launches)
+    launches = {n: f.launches for n, f in counters.items()
+                if per_layer[n]}
+    unexpected = {n: f.launches for n, f in counters.items()
+                  if not per_layer[n] and f.launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     loss_values = [x.item() for x in losses]
-    prof = profile_step(step)      # a 14th step, after the counted ones
+    prof = profile_step(step, label)   # a 14th step, after the counted ones
     sec_per_step = dt / TRAIN_STEPS
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / sec_per_step
     mfu = model.flops_per_token(TRAIN_SEQ) * tokens_per_s / H100_BF16_PEAK
-    split = dict(flash_fwd=c.n_layer * kernel_ms["flash_fwd"],
-                 flash_bwd=c.n_layer * kernel_ms["flash_bwd"])
-    split["rest"] = sec_per_step * 1e3 - split["flash_fwd"] \
-        - split["flash_bwd"]
+    split = {n: c.n_layer * kernel_ms[n] for n in launches}
+    split["rest"] = sec_per_step * 1e3 - sum(split.values())
     out = {
         "gpt2_small_train_tokens_per_sec_per_chip": tokens_per_s,
         "mfu": mfu, "sec_per_step": sec_per_step,
+        "fused_entry_exit": fused,
         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps_timed": TRAIN_STEPS,
         "params": model.num_params(), "loss": loss_values[-1],
         "losses": loss_values,
         "peak_memory_gib": peak_gib, "launches": launches,
         "step_split_ms": split, "profile": prof,
-        "lm_head_loss": {"port_bf16_logits": port_loss,
-                         "f32_logits": jax_head_loss,
-                         "diff": port_loss - jax_head_loss},
     }
-    print(f"[training] GPT-2 small ({model.num_params()} params) B="
+    print(f"[{label}] GPT-2 small ({model.num_params()} params) B="
           f"{TRAIN_BATCH} S={TRAIN_SEQ}: {tokens_per_s:.1f} tokens/s, "
           f"{sec_per_step * 1e3:.2f} ms/step, MFU {mfu:.4f} "
           f"({model.flops_per_token(TRAIN_SEQ)} FLOP/token over "
           f"{H100_BF16_PEAK:.0f} FLOP/s); losses "
           f"{[round(x, 4) for x in loss_values]}; peak {peak_gib:.2f} GiB "
-          f"allocated; launches per step {sorted(set(per_step))}; step "
-          f"split (launches x kernel ms): flash_fwd "
-          f"{split['flash_fwd']:.2f} ms, flash_bwd {split['flash_bwd']:.2f} "
-          f"ms, rest {split['rest']:.2f} ms")
-    print(f"[training] step-0 loss with the port's bf16-rounded logits "
-          f"{port_loss:.6f}, with f32 logits (the JAX head) "
-          f"{jax_head_loss:.6f}, difference {port_loss - jax_head_loss:.3e}")
-    check(all(n == (c.n_layer, c.n_layer) for n in per_step),
-          f"launches (flash_fwd, flash_bwd) per step {per_step}, expected "
-          f"{c.n_layer} each")
+          f"allocated; launches per step "
+          f"{[dict(t) for t in {tuple(d.items()) for d in per_step}]}; step "
+          f"split (launches x kernel ms): "
+          + ", ".join(f"{n} {ms:.2f} ms" for n, ms in split.items()))
+    if not fused:
+        out["lm_head_loss"] = {"port_bf16_logits": port_loss,
+                               "f32_logits": jax_head_loss,
+                               "diff": port_loss - jax_head_loss}
+        out["lm_head_loss"]["mm_out_dtype_differentiable"] = \
+            lm_head_out_dtype_probe()
+        print(f"[training] step-0 loss with the port's bf16-rounded logits "
+              f"{port_loss:.6f}, with f32 logits (the JAX head) "
+              f"{jax_head_loss:.6f}, difference "
+              f"{port_loss - jax_head_loss:.3e}; torch.mm(bf16, bf16, "
+              f"out_dtype=float32) differentiable: "
+              f"{out['lm_head_loss']['mm_out_dtype_differentiable']}")
+    check(all(n == expected for n in per_step),
+          f"{label}: launches per step {per_step}, expected {expected}")
+    check(not unexpected, f"{label} launched {unexpected}")
     check(all(math.isfinite(x) for x in loss_values),
           f"non-finite loss {loss_values}")
     loss0 = math.log(c.padded_vocab) + c.d_model * 0.02 ** 2 / 2
@@ -944,7 +1286,8 @@ def phase_training(kernel_ms):
           f"loss did not fall: {loss_values}")
     del opt
     torch.cuda.empty_cache()
-    out["grad_check"] = phase_grad_check(model, params)
+    out["grad_check"] = (phase_fused_grad_check if fused
+                         else phase_grad_check)(model, params)
     return out
 
 
@@ -962,7 +1305,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
-    from ray_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd
+    from ray_tpu_torch.ops import (flash_attention_bwd, flash_attention_fwd,
+                                   ln_matmul_fwd, matmul_residual_fwd)
     from ray_tpu_torch.serve.llm import LLMServer
 
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda}, "
@@ -975,6 +1319,7 @@ def main() -> int:
             fwd_rows = phase_kernels_fwd()
         bwd_rows = phase_kernels_bwd()
         with torch.no_grad():
+            fused_rows, fused_bwd = phase_kernels_fused()
             t0 = time.perf_counter()
             server = LLMServer("llama2-7b", engine_config=ENGINE_CONFIG,
                                seed=SEED)
@@ -983,12 +1328,17 @@ def main() -> int:
                   f"{time.perf_counter() - t0:.1f} s, "
                   f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB "
                   f"allocated")
-            flash_attention_fwd.launches = 0    # the serving path starts here
+            wrappers = (flash_attention_fwd, flash_attention_bwd,
+                        ln_matmul_fwd, matmul_residual_fwd)
+            for f in wrappers:                  # the serving path starts here
+                f.launches = 0
             forward = phase_forward(server)
             serving = phase_serving(server)
             serving_launches = flash_attention_fwd.launches
             check(serving_launches > 0,
                   "the serving path never launched flash_fwd")
+            check(not any(f.launches for f in wrappers[1:]),
+                  "the serving path launched a training kernel")
         server = None
         serving_peak_gib = torch.cuda.max_memory_allocated() / 2**30
         gc.collect()
@@ -998,10 +1348,17 @@ def main() -> int:
         main_fwd = next(r for r in fwd_rows if r["label"] == FWD_MAIN)
         main_bwd = next(r for r in bwd_rows if r["label"] == GPT_CASE)
         gpt_fwd = next(r for r in fwd_rows if r["label"] == GPT_CASE)
-        training = phase_training({"flash_fwd": gpt_fwd["ms"],
-                                   "flash_bwd": main_bwd["ms"]})
-        for name, n in training["launches"].items():
-            check(n > 0, f"the training path never launched {name}")
+        kernel_ms = {"flash_fwd": gpt_fwd["ms"], "flash_bwd": main_bwd["ms"]}
+        training = phase_training(kernel_ms)
+        gc.collect()
+        torch.cuda.empty_cache()
+        fused_ms = {r["label"]: r["ms"] for r in fused_rows if "ms" in r}
+        training_fused = phase_training(
+            {**kernel_ms, "ln_matmul": fused_ms["QKV"] + fused_ms["FC"],
+             "mm_res": fused_ms["proj"] + fused_ms["MLP out"]}, fused=True)
+        for path in (training, training_fused):
+            for name, n in path["launches"].items():
+                check(n > 0, f"a training path never launched {name}")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1010,9 +1367,13 @@ def main() -> int:
             server.shutdown()
     print(f"[memory] peak allocated: {serving_peak_gib:.1f} GiB up to the "
           f"end of serving, {training['peak_memory_gib']:.1f} GiB in the "
-          f"training steps")
+          f"training steps, {training_fused['peak_memory_gib']:.1f} GiB in "
+          f"the fused training steps")
     fwd_launches = dict(serving=serving_launches,
-                        training=training["launches"]["flash_fwd"])
+                        training=training["launches"]["flash_fwd"],
+                        training_fused=training_fused["launches"]["flash_fwd"])
+    bwd_launches = dict(training=training["launches"]["flash_bwd"],
+                        training_fused=training_fused["launches"]["flash_bwd"])
 
     def bf16_max_err(rows):
         return max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
@@ -1040,8 +1401,8 @@ def main() -> int:
         "replaces": ["ray_tpu/ops/flash_attention.py:229",
                      "ray_tpu/ops/flash_attention.py:286",
                      "ray_tpu/ops/flash_attention.py:330"],
-        "launches": training["launches"]["flash_bwd"],
-        "launches_by_path": {"training": training["launches"]["flash_bwd"]},
+        "launches": sum(bwd_launches.values()),
+        "launches_by_path": bwd_launches,
         "max_abs_err": bf16_max_err(bwd_rows),
         "ms": main_bwd["ms"], "plain_ms": main_bwd["plain_ms"],
         "bound_ms": main_bwd["bound_ms"], "bound_by": main_bwd["bound_by"],
@@ -1049,7 +1410,32 @@ def main() -> int:
         "shape": "[40, 1024, 12, 64] bf16 causal",
         "by_shape": bwd_rows,
     }]
-    summary = {"forward": forward, "serving": serving, "training": training}
+    for name, replaces in (("ln_matmul", "ray_tpu/ops/fused.py:34"),
+                           ("mm_res", "ray_tpu/ops/fused.py:117")):
+        rows = [r for r in fused_rows if r["kernel"] == name]
+        main_row = next(r for r in rows if r["label"] == FUSED_MAIN[name])
+        n, k, f = main_row["shape"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"ray_tpu_torch/csrc/{name}.cu",
+            "replaces": [replaces],
+            "launches": training_fused["launches"][name],
+            "launches_by_path": {
+                "training_fused": training_fused["launches"][name]},
+            "max_abs_err": bf16_max_err(rows),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            # no single PyTorch call computes either function: the cuBLAS
+            # composition addmm(wb, layer_norm(x), w) / addmm(res + b, a, w)
+            "library_ms": main_row["library_ms"],
+            "library": "cuBLAS composition, not one call",
+            "shape": f"[{n}, {k}] x [{k}, {f}] bf16",
+            "by_shape": rows,
+        })
+    summary = {"forward": forward, "serving": serving, "training": training,
+               "training_fused": training_fused,
+               "fused_backward_products": fused_bwd}
     print(f"[summary] {json.dumps(summary)}")
     print(card)
     print(json.dumps({"kernels": kernels}))

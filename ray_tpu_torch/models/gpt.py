@@ -7,14 +7,17 @@ vocabulary padded to a multiple of 128), and ``apply`` / ``loss`` /
 with respect to it. Matmul weights are cast to ``config.dtype`` at each
 use, as in the JAX model. Attention goes through ``flash_attention`` (the
 CUDA forward and backward kernels on the card) or, with
-``use_flash=False``, through ``mha_reference``.
+``use_flash=False``, through ``mha_reference``. With
+``fused_entry_exit=True`` each block's LN1 + QKV projection goes through
+``ln_matmul`` and, without dropout, its exit (projection + residual, LN2 +
+FC, MLP out + residual) through ``matmul_residual`` and ``ln_matmul``
+(the ops/fused.py kernels), as in the JAX model.
 
 Not here until a slice reads them: the XLA compile knobs ``remat`` and
 ``scan_layers``, ``flash_block_q/k`` (the CUDA kernels choose their own
-tiles), ``seq_axis`` (ring attention), ``fused_entry_exit`` (the
-ops/fused.py kernels), the paged serving methods (and with them the
-``positions`` argument of ``apply``), ``loss_pp``, the pipeline-stage
-slicing and the sharding tables.
+tiles), ``seq_axis`` (ring attention), the paged serving methods (and
+with them the ``positions`` argument of ``apply``), ``loss_pp``, the
+pipeline-stage slicing and the sharding tables.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import (cross_entropy_loss, flash_attention, gelu, layernorm,
-                   mha_reference)
+                   ln_matmul, matmul_residual, mha_reference)
 
 Params = Dict[str, torch.Tensor]
 
@@ -48,6 +51,9 @@ class GPTConfig:
     dtype: torch.dtype = torch.bfloat16      # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
     use_flash: bool = True
+    # LN + matmul fused at the block entry, matmul + residual at the exit
+    # (the ops/fused.py kernels); off by default, as in the JAX model
+    fused_entry_exit: bool = False
 
     @property
     def padded_vocab(self) -> int:
@@ -164,8 +170,13 @@ class GPT:
         B, S, D = x.shape
         H, hd = c.n_head, c.head_dim
         drop = c.dropout > 0.0 and generator is not None
-        h = layernorm(x, lp["ln1_g"], lp["ln1_b"])
-        qkv = self._mm(h, lp["w_qkv"]) + lp["b_qkv"].to(c.dtype)
+        if c.fused_entry_exit:
+            qkv = ln_matmul(x.reshape(B * S, D), lp["ln1_g"], lp["ln1_b"],
+                            lp["w_qkv"].to(c.dtype),
+                            lp["b_qkv"].to(c.dtype)).reshape(B, S, 3 * D)
+        else:
+            h = layernorm(x, lp["ln1_g"], lp["ln1_b"])
+            qkv = self._mm(h, lp["w_qkv"]) + lp["b_qkv"].to(c.dtype)
         q, k, v = (t.reshape(B, S, H, hd) for t in qkv.split(D, dim=-1))
         if c.use_flash:
             # the split views of qkv are strided; the kernels take
@@ -174,6 +185,17 @@ class GPT:
                                    v.contiguous(), causal=True)
         else:
             attn = mha_reference(q, k, v, causal=True)
+        if c.fused_entry_exit and not drop:
+            x = matmul_residual(attn.reshape(B * S, D),
+                                lp["w_proj"].to(c.dtype),
+                                lp["b_proj"].to(c.dtype),
+                                x.reshape(B * S, D))
+            h = gelu(ln_matmul(x, lp["ln2_g"], lp["ln2_b"],
+                               lp["w_fc"].to(c.dtype),
+                               lp["b_fc"].to(c.dtype)))
+            return matmul_residual(h, lp["w_out"].to(c.dtype),
+                                   lp["b_out"].to(c.dtype),
+                                   x).reshape(B, S, D)
         proj = self._mm(attn.reshape(B, S, D), lp["w_proj"]) \
             + lp["b_proj"].to(c.dtype)
         if drop:

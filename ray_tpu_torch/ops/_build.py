@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C entry point named ``<name>`` and is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/ray_tpu_torch/lib<name>.so``
 at the root of the checkout, at first use, from the sources in the
 checkout only. The library is loaded with ctypes. A build is redone when
-the source's SHA-256 differs from the one recorded beside the library.
+the SHA-256 of the source and of the headers beside it (``csrc/*.cuh``)
+differs from the one recorded beside the library.
 ``build`` compiles several sources at once, one ``nvcc`` each, all started
 together. A failed build raises; nothing falls back to a plain version.
 """
@@ -38,7 +39,12 @@ def _nvcc() -> str:
 
 
 def _digest(src: Path) -> str:
-    return hashlib.sha256(src.read_bytes()).hexdigest()
+    """SHA-256 over the source and every header beside it, so that an edit
+    to a shared header rebuilds the sources that include it."""
+    h = hashlib.sha256()
+    for path in [src, *sorted(src.parent.glob("*.cuh"))]:
+        h.update(path.read_bytes())
+    return h.hexdigest()
 
 
 def build(*names: str) -> Dict[str, str]:

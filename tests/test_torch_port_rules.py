@@ -5,9 +5,9 @@
   keeps its own copy of whatever it needs.
 - ``chip_smoke.py`` fails and prints no result where it cannot run: with
   no CUDA device, or with no port beside it.
-- The flash kernel's wrapper and the kernel build hold no ``try``: on a
-  CUDA tensor the wrapper launches the kernel or raises, and a failed
-  build raises; nothing gives way to the plain version.
+- The kernel wrappers and the kernel build hold no ``try``: on a CUDA
+  tensor a wrapper launches its kernel or raises, and a failed build
+  raises; nothing gives way to the plain version.
 """
 import ast
 import os
@@ -23,6 +23,7 @@ PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
 NO_TRY_FILES = ("ray_tpu_torch/ops/flash_attention.py",
+                "ray_tpu_torch/ops/fused.py",
                 "ray_tpu_torch/ops/_build.py")
 
 
@@ -54,7 +55,8 @@ def test_port_files_exist():
     for want in ("ray_tpu_torch/__init__.py", "chip_smoke.py",
                  *NO_TRY_FILES):
         assert want in names
-    for kernel in ("flash_fwd.cu", "flash_bwd.cu"):
+    for kernel in ("flash_fwd.cu", "flash_bwd.cu", "ln_matmul.cu",
+                   "mm_res.cu", "tile_gemm.cuh"):
         assert (ROOT / "ray_tpu_torch" / "csrc" / kernel).exists()
 
 
