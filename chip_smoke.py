@@ -18,7 +18,13 @@ Phases, each of which exits non-zero on failure:
               block entry and exit (ln_matmul, mm_res) at GPT-2 small's four
               training shapes, timed beside the cuBLAS composition of the
               same function; and matmul_residual's bf16 backward products
-              against the f32 products they stand for.
+              against the f32 products they stand for. The flash backward
+              runs twice on the same inputs and must be bitwise equal;
+              each timed flash case prints its time over SDPA's and its
+              share of the bound. GPT-2 small's LM head at one training
+              chunk: f32 logits and dx, dw against the f32 products of the
+              same bf16 operands and f32 cotangent, with a planted control
+              (logits and cotangent rounded to bf16) that must fail.
 3. forward  — Llama-2-7B at full width (32 layers, d_model 4096, 32 heads,
               bf16, random weights from seed 0): `apply` on [1, 1024] and
               [1, 4096] tokens must launch the flash kernel once per layer
@@ -166,6 +172,25 @@ TOL_FUSED_GRAD = 0.1
 FUSED_FAULTS = ("dres dropped", "layernorm backward without its variance term")
 FUSED_SHOWN = ("layernorm backward without its mean term",)
 
+#   GPT-2 small's LM head at one chunk ([4096, 768] x [50304, 768], bf16
+#   operands): the logits' largest error over the largest |ref| of the
+#   f32 product of the same bf16 operands at most 1e-4 (the sound head
+#   keeps the f32 accumulation and differs by summation order, about
+#   1e-6; the control, logits rounded to bf16, differs by up to half a
+#   bf16 ulp, about 2e-3 of the largest logit). dx and dw against the f32
+#   products of the f32 cotangent rounded once to bf16: at most 5% of the
+#   entries may differ at all, by at most one bf16 ulp (of |ref|, floored
+#   at 1/1024 of the largest). The head's hi/lo split reproduces the f32
+#   cotangent's products to about 2^-16, so only near-ties flip (on an
+#   H100: 0.95% of dx and 0.3% of dw, by one ulp). The control, logits and
+#   cotangent rounded to bf16 (the head before its repair), fails the
+#   logits by 20x and moves 31% of dw and up to 2 ulps of dx there: dx,
+#   whose cotangent is mostly the exact -1 of the target, alone would not
+#   tell them apart.
+TOL_HEAD_LOGITS = 1e-4
+TOL_HEAD_SHARE = 0.05
+TOL_HEAD_ULPS = 1.0
+
 # Timed kernel cases: (label, [B, S, H, D], dtype, causal)
 GPT_CASE = "GPT-2 training"    # the training path's attention shape
 FWD_CASES = [
@@ -183,9 +208,14 @@ BWD_CASES = [
     ("f32", (2, 256, 4, 32), "float32", True),
 ]
 # Checked against the plain version but not timed: the kernels' other
-# template instances, a length that is a multiple of 64 but not of 128,
-# and non-causal attention with seq_q != seq_k.
+# template instances, a length that is a multiple of 64 but not of 128
+# (the bf16 kernels' 128-row tiles then end half empty), a single 64-row
+# tile, and non-causal attention with seq_q != seq_k either way.
 # (label, [B, Sq, H, D], Sk, dtype, causal)
+EDGE_CHECKS = [
+    ("bf16 one 64-row tile", (1, 64, 2, 64), 64, "bfloat16", True),
+    ("bf16 Sq=192 Sk=64", (1, 192, 2, 64), 64, "bfloat16", False),
+]
 FWD_CHECKS = [
     ("bf16 hd32 S=192", (2, 192, 8, 32), 192, "bfloat16", True),
     ("bf16 Sq!=Sk", (1, 128, 4, 64), 320, "bfloat16", False),
@@ -194,7 +224,8 @@ FWD_CHECKS = [
 ]
 BWD_CHECKS = FWD_CHECKS + [
     ("bf16 hd128", (1, 256, 4, 128), 256, "bfloat16", True),
-]
+] + EDGE_CHECKS
+FWD_CHECKS += EDGE_CHECKS
 # Fused block entry and exit at GPT-2 small's training shapes (B*S = 40960
 # rows): (label, kernel, N, K, F). ln_matmul: LN1 + QKV, LN2 + FC; mm_res:
 # attention projection + residual, MLP out + residual.
@@ -233,7 +264,7 @@ H100_BF16_PEAK = 989e12        # MFU denominator, as PEAK_FLOPS
 #   / 2 = 10.8258 + 0.1536 for GPT-2 small; it must lie within 0.05.
 TOL_LOSS0 = 0.05
 # Device kernels of a profiled step, by class: (class, name fragments).
-KERNEL_CLASSES = (("flash_fwd", ("flash_fwd_kernel",)),
+KERNEL_CLASSES = (("flash_fwd", ("flash_fwd_",)),
                   ("flash_bwd", ("flash_bwd_",)),
                   ("ln_matmul", ("ln_matmul_kernel",)),
                   ("mm_res", ("mm_res_kernel",)),
@@ -644,14 +675,16 @@ def phase_kernels_fwd():
                    max_abs_err=err_out, row_scaled_err=err_row,
                    lse_max_abs_err=err_lse, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                   bound_by=bound_by)
+                   bound_by=bound_by, over_library=ms / lib_ms,
+                   bound_share=bound_ms / ms)
         print(f"[kernels] flash_fwd {label} {list(shape)} {dtype} "
               f"causal={causal}: out err {err_out:.3e} (tol "
               f"{TOL_OUT[dtype]}), row-scaled {err_row:.3e} (tol "
               f"{TOL_OUT_ROW[dtype]}), lse err {err_lse:.3e} (tol "
               f"{TOL_LSE[dtype]}){control}; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
+              f"{bound_ms:.4f} ms ({bound_by}); kernel/sdpa "
+              f"{ms / lib_ms:.2f}, {bound_ms / ms:.1%} of bound")
         check(out_agrees(err_out, err_row, dtype)
               and err_lse <= TOL_LSE[dtype],
               f"flash {label} disagrees with its plain version")
@@ -704,6 +737,11 @@ def phase_kernels_bwd():
         out, lse = flash_attention_fwd(q, k, v, causal)
         got = flash_attention_bwd(q, k, v, out, lse, do, causal)
         torch.cuda.synchronize()
+        # no atomics, a fixed summation order: a second run is bitwise equal
+        again = flash_attention_bwd(q, k, v, out, lse, do, causal)
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"flash_bwd {label}: dq, dk, dv differ between two runs")
+        del again
         ref = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
         check(all(g.shape == r.shape and g.dtype == r.dtype
                   for g, r in zip(got, ref)),
@@ -719,9 +757,10 @@ def phase_kernels_bwd():
                                           scale, BWD_CONTROL), ref)
             control = (f"; control ({BWD_CONTROL}): scaled {ctl[0]:.3e}, "
                        f"row-scaled {ctl[1]:.3e}")
-        text = (f"{list(shape)} seq_k {sk} {dtype} causal={causal}: max abs "
-                f"err {err_abs:.3e}, scaled {scaled:.3e} (tol "
-                f"{TOL_GRAD[dtype]}), row-scaled {row_err:.3e} (tol "
+        text = (f"{list(shape)} seq_k {sk} {dtype} causal={causal}: bitwise "
+                f"equal over two runs; max abs err {err_abs:.3e}, scaled "
+                f"{scaled:.3e} (tol {TOL_GRAD[dtype]}), row-scaled "
+                f"{row_err:.3e} (tol "
                 f"{TOL_GRAD_ROW[dtype]}){control}")
         row = dict(label=label, shape=list(shape), seq_k=sk, dtype=dtype,
                    causal=causal, max_abs_err=err_abs, scaled_err=scaled,
@@ -743,10 +782,12 @@ def phase_kernels_bwd():
                     o, leaves, g, retain_graph=True), reps=10 if big else 30)
             bound_ms, bound_by = flash_bwd_bound(shape, sk, dtype, causal)
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       over_library=ms / lib_ms, bound_share=bound_ms / ms)
             text += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
                      f"backward {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                     f"({bound_by})")
+                     f"({bound_by}); kernel/sdpa {ms / lib_ms:.2f}, "
+                     f"{bound_ms / ms:.1%} of bound")
             del leaves, o, g
         print(f"[kernels] flash_bwd {label} {text}")
         check(grads_agree(scaled, row_err, dtype),
@@ -938,40 +979,96 @@ def phase_serving(server):
     return out
 
 
-def lm_head_out_dtype_probe():
-    """Whether this torch differentiates torch.mm(x, w.T,
-    out_dtype=float32) on bf16 operands, the product that would keep the
-    LM head's f32 accumulation (ROADMAP C): a string to print."""
+def head_grad_errors(got, ref):
+    """(share of entries not equal to the f32 product `ref` rounded once to
+    bf16, largest difference in bf16 ulps of |ref| floored at 1/1024 of
+    the largest |ref|) of a bf16-valued gradient."""
     import torch
 
-    x = torch.randn(64, 64, device="cuda", dtype=torch.bfloat16,
-                    requires_grad=True)
-    try:
-        y = torch.mm(x, x.detach().T, out_dtype=torch.float32)
-        y.sum().backward()
-    except (RuntimeError, TypeError) as e:
-        return f"no: {type(e).__name__}: {str(e)[:120]}"
-    return f"yes (out {y.dtype}, grad {x.grad.dtype})"
+    diff = (got.float() - ref.to(torch.bfloat16).float()).abs()
+    mag = torch.maximum(ref.abs(), ref.abs().max() / 1024)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return (diff > 0).float().mean().item(), (diff / ulp).max().item()
 
 
-def lm_head_losses(model, params, tokens, targets, num_chunks):
-    """(loss with the port's LM head, whose bf16 product rounds the logits
-    to bf16, and loss with the JAX model's head, the same bf16 operands
-    with the f32 accumulation kept unrounded) on the same backbone."""
+def head_agrees(logit_err, dx, dw):
+    return (logit_err <= TOL_HEAD_LOGITS
+            and all(share <= TOL_HEAD_SHARE and ulps <= TOL_HEAD_ULPS
+                    for share, ulps in (dx, dw)))
+
+
+def phase_lm_head():
+    """GPT-2 small's LM head at one chunk of the training step ([4096, 768]
+    bf16 activations by the [50304, 768] tied embedding, cast to bf16):
+    its f32 logits against the f32 product of the same bf16 operands, and
+    its dx and dw for the chunk's cross-entropy cotangent against the f32
+    products of that f32 cotangent (JAX's transpose), computed once in f32
+    and untimed; then the planted control, the route that rounds the
+    logits and the cotangent to bf16, and the time of both routes'
+    forward and backward."""
     import torch
 
-    with torch.no_grad():
-        x = model._backbone(params, tokens)
-        port = model._chunked_head_nll(params["wte"], x, targets,
-                                       num_chunks).item()
-        head = params["wte"].to(model.config.dtype).float()
-        total, n = 0.0, targets.numel()
-        for xc, tc in zip(x.reshape(n, -1).chunk(num_chunks),
-                          targets.reshape(n).chunk(num_chunks)):
-            logits = xc.float() @ head.T
-            total += (torch.logsumexp(logits, dim=-1)
-                      - logits.gather(-1, tc[:, None])[:, 0]).sum().item()
-    return port, total / n
+    from ray_tpu_torch.models import GPT, GPTConfig
+
+    c = GPTConfig.small(use_flash=True)
+    model = GPT(c)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 300)
+    n, v, d = HEAD_CHUNK_ROWS, c.padded_vocab, c.d_model
+    x = torch.nn.functional.layer_norm(
+        torch.randn(n, d, generator=gen, device="cuda"), (d,)).to(bf16)
+    w = torch.randn(v, d, generator=gen, device="cuda") * 0.02
+    targets = torch.randint(0, c.vocab_size, (n,), generator=gen,
+                            device="cuda")
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    logits = model._lm_head(wr, xr)
+    g = torch.softmax(logits.detach(), dim=-1)   # d(sum of the NLL)/dlogits
+    g[torch.arange(n, device="cuda"), targets] -= 1.0
+    logits.backward(g)
+    xf, wf = x.float(), w.to(bf16).float()
+    ref = xf @ wf.T
+    top = ref.abs().max()
+    logit_err = ((logits.detach() - ref).abs().max() / top).item()
+    del ref
+    ref_dx, ref_dw = g @ wf, g.T @ xf
+    dx = head_grad_errors(xr.grad, ref_dx)
+    dw = head_grad_errors(wr.grad, ref_dw)
+    wb = w.to(bf16)
+    ctl_err = (((x @ wb.T).float() - xf @ wf.T).abs().max() / top).item()
+    gb = g.to(bf16)
+    ctl_dx = head_grad_errors(gb @ wb, ref_dx)
+    ctl_dw = head_grad_errors(gb.T @ x, ref_dw)
+    del ref_dx, ref_dw, logits
+
+    def head_step():
+        xr.grad = wr.grad = None
+        model._lm_head(wr, xr).backward(g)
+
+    def control_step():
+        xr.grad = wr.grad = None
+        (xr @ wr.to(bf16).T).float().backward(g)
+
+    ms = cuda_ms(head_step, reps=10)
+    ctl_ms = cuda_ms(control_step, reps=10)
+    print(f"[lm_head] [{n}, {d}] x [{v}, {d}] bf16: logits err "
+          f"{logit_err:.3e} of max (tol {TOL_HEAD_LOGITS}); dx share off "
+          f"{dx[0]:.4f}, max {dx[1]:.2f} ulp; dw share off {dw[0]:.4f}, max "
+          f"{dw[1]:.2f} ulp (tol {TOL_HEAD_SHARE}, {TOL_HEAD_ULPS} ulp); "
+          f"control (bf16 logits and cotangent): logits {ctl_err:.3e}, dx "
+          f"{ctl_dx[0]:.4f} / {ctl_dx[1]:.2f} ulp, dw {ctl_dw[0]:.4f} / "
+          f"{ctl_dw[1]:.2f} ulp; forward + backward {ms:.4f} ms, control "
+          f"{ctl_ms:.4f} ms")
+    check(head_agrees(logit_err, dx, dw),
+          "the LM head disagrees with the f32 products")
+    check(not head_agrees(ctl_err, ctl_dx, ctl_dw),
+          "the bf16-rounding control passes the LM head check")
+    out = dict(shape=[n, d, v], logits_err=logit_err, dx=dx, dw=dw,
+               control=dict(logits_err=ctl_err, dx=ctl_dx, dw=ctl_dw),
+               ms=ms, control_ms=ctl_ms)
+    del x, w, xr, wr, g, gb, wb, xf, wf
+    torch.cuda.empty_cache()
+    return out
 
 
 def ln_matmul_bwd_variant(x, g, b, w, dout, eps, fault):
@@ -1194,9 +1291,6 @@ def phase_training(kernel_ms, fused=False):
                            generator=gen, device="cuda")
     targets = torch.roll(tokens, -1, dims=1)
     num_chunks = TRAIN_BATCH * TRAIN_SEQ // HEAD_CHUNK_ROWS
-    if not fused:
-        port_loss, jax_head_loss = lm_head_losses(model, params, tokens,
-                                                  targets, num_chunks)
     # every kernel's wrapper, and its launches a step on this path
     counters = {"flash_fwd": flash_attention_fwd,
                 "flash_bwd": flash_attention_bwd, "ln_matmul": ln_matmul_fwd,
@@ -1261,18 +1355,6 @@ def phase_training(kernel_ms, fused=False):
           f"{[dict(t) for t in {tuple(d.items()) for d in per_step}]}; step "
           f"split (launches x kernel ms): "
           + ", ".join(f"{n} {ms:.2f} ms" for n, ms in split.items()))
-    if not fused:
-        out["lm_head_loss"] = {"port_bf16_logits": port_loss,
-                               "f32_logits": jax_head_loss,
-                               "diff": port_loss - jax_head_loss}
-        out["lm_head_loss"]["mm_out_dtype_differentiable"] = \
-            lm_head_out_dtype_probe()
-        print(f"[training] step-0 loss with the port's bf16-rounded logits "
-              f"{port_loss:.6f}, with f32 logits (the JAX head) "
-              f"{jax_head_loss:.6f}, difference "
-              f"{port_loss - jax_head_loss:.3e}; torch.mm(bf16, bf16, "
-              f"out_dtype=float32) differentiable: "
-              f"{out['lm_head_loss']['mm_out_dtype_differentiable']}")
     check(all(n == expected for n in per_step),
           f"{label}: launches per step {per_step}, expected {expected}")
     check(not unexpected, f"{label} launched {unexpected}")
@@ -1318,6 +1400,7 @@ def main() -> int:
             card = phase_build()
             fwd_rows = phase_kernels_fwd()
         bwd_rows = phase_kernels_bwd()
+        lm_head = phase_lm_head()
         with torch.no_grad():
             fused_rows, fused_bwd = phase_kernels_fused()
             t0 = time.perf_counter()
@@ -1435,7 +1518,7 @@ def main() -> int:
         })
     summary = {"forward": forward, "serving": serving, "training": training,
                "training_fused": training_fused,
-               "fused_backward_products": fused_bwd}
+               "fused_backward_products": fused_bwd, "lm_head": lm_head}
     print(f"[summary] {json.dumps(summary)}")
     print(card)
     print(json.dumps({"kernels": kernels}))

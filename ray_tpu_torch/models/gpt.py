@@ -39,6 +39,50 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def _bf16_mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b.T of two matrices in a 16-bit dtype, accumulated and returned
+    in f32, never rounded to the operands' dtype: a cuBLAS product with an
+    f32 output on CUDA, the f32 product of the upcast operands on the CPU
+    (the same function: products of 16-bit values are exact in f32)."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b.T, out_dtype=torch.float32)
+    return a.float() @ b.float().T
+
+
+class _LMHead(torch.autograd.Function):
+    """x [T, D] @ w [V, D].T -> f32 logits [T, V], as the JAX head
+    computes them (``preferred_element_type=f32``). The backward is JAX's
+    transpose: the f32 cotangent g goes into both products, accumulated in
+    f32 and rounded to x's dtype once. In a 16-bit dtype g is split into
+    hi = g in that dtype and lo = (g - hi) in that dtype: 16-bit products
+    whose f32 sum is g's product to about 2^-16 relative, far inside one
+    ulp of the rounded result, at the 16-bit rate."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.dtype == torch.float32:
+            return x @ w.T
+        return _bf16_mm_f32(x, w)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        if x.dtype == torch.float32:
+            return g @ w, g.T @ x
+        # [hi; lo] stacked: dw is one product over 2T rows, accumulated in
+        # f32 across both halves; dx the sum of its two halves
+        t = g.shape[0]
+        hl = torch.empty((2 * t, g.shape[1]), dtype=x.dtype, device=g.device)
+        hl[:t].copy_(g)
+        torch.sub(g, hl[:t], out=hl[t:])   # in f32, rounded on the store
+        dx2 = _bf16_mm_f32(hl, w.T)
+        dx = dx2[:t] + dx2[t:]
+        dw = _bf16_mm_f32(hl.T, torch.cat([x, x]).T)
+        return dx.to(x.dtype), dw.to(w.dtype)
+
+
 @dataclass(frozen=True)
 class GPTConfig:
     vocab_size: int = 50257
@@ -217,12 +261,11 @@ class GPT:
             + wpe[: tokens.shape[1]].to(dtype)
 
     def _lm_head(self, head_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """Tied LM head: a product in the compute dtype, returned as f32.
-        The JAX model keeps the product's f32 accumulation unrounded
-        (preferred_element_type=f32); here a bf16 product rounds the
-        logits to bf16 before the cast. PERF.md gives the loss difference
-        this makes at GPT-2 small's training shape."""
-        return (x @ head_w.to(self.config.dtype).T).float()
+        """Tied LM head: the compute-dtype operands, the product accumulated
+        and returned in f32 (``_LMHead``), as the JAX model's head."""
+        w = head_w.to(self.config.dtype)
+        logits = _LMHead.apply(x.reshape(-1, x.shape[-1]), w)
+        return logits.reshape(*x.shape[:-1], w.shape[0])
 
     def _backbone(self, params: Params, tokens: torch.Tensor,
                   generator: Optional[torch.Generator] = None

@@ -30,11 +30,11 @@ from .attention import mha_reference
 
 _NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)      # the kernels' template instances
-TILE = 64                      # the kernels' Q and K/V tile rows
+TILE = 64                      # sequence lengths step by 64 rows
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p]
 
 
@@ -90,11 +90,18 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _scale_q(q: torch.Tensor, sm_scale: float) -> torch.Tensor:
+    """q * sm_scale rounded to q's dtype, as the JAX kernels scale it
+    (``q * jnp.asarray(sm_scale, q.dtype)``): the one rounding of q that
+    every kernel and plain version shares."""
+    return q * torch.tensor(sm_scale, dtype=q.dtype)
+
+
 def _scaled_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
                    sm_scale: float) -> torch.Tensor:
     """[B, H, Sq, Sk] f32 scores as the kernels form them: q scaled in its
     own dtype, the product in f32, masked scores -1e30."""
-    qs = q * torch.tensor(sm_scale, dtype=q.dtype)
+    qs = _scale_q(q, sm_scale)
     s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
     if causal:
         sq, sk = q.shape[1], k.shape[1]
@@ -161,8 +168,22 @@ flash_attention_fwd.launches = 0   # kernel launches since last reset
 
 def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(dO * out) in f32, [B, H, Sq]: the elementwise
-    reduction the JAX package leaves to XLA outside its kernels."""
-    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    reduction the JAX package leaves to XLA outside its kernels (f32
+    products of the input-dtype values, summed in f32). Eager PyTorch
+    does not fuse the upcasts, the product and the sum, so for 16-bit
+    CUDA tensors it is the diagonal of each position's [H, H] product
+    dO . out^T with 16-bit operands accumulated in f32 (``out_dtype``):
+    one read of each input, the same exact products summed in another
+    order."""
+    if do.device.type == "cuda" and do.dtype != torch.float32:
+        b, s, h, d = do.shape
+        prod = torch.bmm(do.reshape(b * s, h, d),
+                         out.reshape(b * s, h, d).transpose(1, 2),
+                         out_dtype=torch.float32)
+        rows = prod.diagonal(dim1=1, dim2=2).reshape(b, s, h)
+    else:
+        rows = (do.float() * out.float()).sum(-1)
+    return rows.transpose(1, 2).contiguous()
 
 
 def _check_bwd(q, k, v, out, lse, do, causal) -> None:
@@ -211,7 +232,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``do``. CPU tensors run the plain version; CUDA tensors launch
     csrc/flash_bwd.cu (its two kernels count as one launch) under the
     forward's conditions — anything else raises. delta = rowsum(do * out)
-    is computed here, outside the kernel, as the JAX package does."""
+    is computed here, outside the kernel, as the JAX package does, and so
+    is q * sm_scale in q's dtype (``_scale_q``), which the bf16 kernels read
+    beside q."""
     _check_bwd(q, k, v, out, lse, do, causal)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
@@ -219,16 +242,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                          sm_scale)
     _check_kernel_inputs("flash_attention_bwd", q, k, v=v, out=out, do=do)
-    if lse.device != q.device or not lse.is_contiguous():
-        raise ValueError("flash_attention_bwd: lse must be contiguous on "
-                         "q's device")
+    if lse.device != q.device or not lse.is_contiguous() \
+            or lse.data_ptr() % 16:
+        raise ValueError("flash_attention_bwd: lse must be contiguous and "
+                         "16-byte aligned on q's device")
     b, sq, h, d = q.shape
     delta = _delta(out, do)
+    qs = _scale_q(q, sm_scale)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.load("flash_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
-        err = lib.flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        err = lib.flash_bwd(q.data_ptr(), qs.data_ptr(), k.data_ptr(),
+                            v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                            delta.data_ptr(),
                             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
                             sq, k.shape[1], d, _DTYPE_CODE[q.dtype],
                             int(causal), float(sm_scale), _stream(q.device))

@@ -227,3 +227,33 @@ def test_adamw_steps_match_jax(seq, block):
         np.testing.assert_allclose(got, want, rtol=0, atol=2 * LR * STEPS,
                                    err_msg=name)
         assert np.mean(np.abs(got - want) > LR / 100) <= 1e-3, name
+
+
+def test_loss_chunked_bf16_matches_jax():
+    """loss_chunked's value and gradients in bf16 (GPTConfig.tiny, the
+    flash path on both sides) against the JAX loss_chunked on the same
+    weights and tokens. The LM head keeps its f32 logits on both sides, so
+    the losses agree to 2e-5 relative (measured 2.3e-6); the gradients
+    carry the bf16 roundings that the two backbones make at other places
+    (layernorm, gelu, the flash kernels' bf16 p and ds), so each
+    parameter's ||g - g_jax|| / ||g_jax|| is held to 3e-2 (measured at
+    most 1.1e-2, in b_fc)."""
+    jm = JGPT(JConfig.tiny(dtype=jnp.bfloat16, remat=False, max_seq=128))
+    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    tm = GPT(GPTConfig.tiny(dtype=torch.bfloat16, max_seq=128))
+    tp = gpt_params_from_numpy({n: np.asarray(a) for n, a in jp.items()},
+                               tm.config, torch.device("cpu"))
+    tokens, targets = _tokens(5, 2, 128)
+    j_loss, j_grads = jax.value_and_grad(jm.loss_chunked)(
+        jp, jnp.asarray(tokens), jnp.asarray(targets), num_chunks=2)
+    params = {n: p.clone().requires_grad_() for n, p in tp.items()}
+    loss = tm.loss_chunked(params, torch.from_numpy(tokens),
+                           torch.from_numpy(targets), num_chunks=2)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=2e-5)
+    for name, want in j_grads.items():
+        want = np.asarray(want)
+        got = params[name].grad.numpy()
+        assert got.shape == want.shape, name
+        rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+        assert rel <= 3e-2, (name, rel)

@@ -9,6 +9,7 @@ version, which is what a CPU tensor gets. Tolerances: 2e-5 for f32
 (bf16 rounding, as tests/test_ops.py:61).
 """
 import importlib
+import math
 
 import numpy as np
 import pytest
@@ -302,6 +303,28 @@ def test_flash_bwd_plain_matches_jax_flash_bwd_bf16(seq, block, kernel,
         np.testing.assert_allclose(_np(a), _from_bhsd(w, b, h),
                                    atol=GRAD_TOL["bfloat16"],
                                    rtol=GRAD_TOL["bfloat16"], err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scale_q_matches_jax_scaling(dtype, monkeypatch):
+    """The one rounding of q that the kernels and the plain versions share,
+    q * sm_scale in q's dtype, is the JAX kernels' own
+    (``q * jnp.asarray(sm_scale, q.dtype)``, ray_tpu/ops/flash_attention.py
+    :85 and :120): bitwise equal for bf16 and f32, at a scale that bf16
+    does not hold exactly. Both plain versions reach it."""
+    q, k, v = _qkv(15, b=1, s=128, h=2)
+    scale = 1.0 / math.sqrt(40.0)
+    jq, tq = _both(q, dtype)
+    want = _np(jq * jnp.asarray(scale, jq.dtype))
+    np.testing.assert_array_equal(_np(fa_mod._scale_q(tq, scale)), want)
+    calls = []
+    helper = fa_mod._scale_q
+    monkeypatch.setattr(fa_mod, "_scale_q",
+                        lambda *a: calls.append(a) or helper(*a))
+    tk, tv = (_both(a, dtype)[1] for a in (k, v))
+    out, lse = fa_mod.flash_attention_fwd_plain(tq, tk, tv, True, scale)
+    fa_mod.flash_attention_bwd_plain(tq, tk, tv, out, lse, out, True, scale)
+    assert len(calls) == 2 and all(a[1] == scale for a in calls)
 
 
 def test_flash_backward_uses_saved_residuals(monkeypatch):

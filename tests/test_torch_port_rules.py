@@ -56,7 +56,7 @@ def test_port_files_exist():
                  *NO_TRY_FILES):
         assert want in names
     for kernel in ("flash_fwd.cu", "flash_bwd.cu", "ln_matmul.cu",
-                   "mm_res.cu", "tile_gemm.cuh"):
+                   "mm_res.cu", "tile_gemm.cuh", "hopper.cuh"):
         assert (ROOT / "ray_tpu_torch" / "csrc" / kernel).exists()
 
 
