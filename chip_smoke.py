@@ -7,8 +7,9 @@ Phases, each of which exits non-zero on failure:
 
 1. build    — compile ray_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu,
               ln_matmul.cu and mm_res.cu with nvcc for sm_90a, one nvcc
-              each, started together; print the card's name and power
-              limit.
+              each, started together; print ptxas's registers and spills
+              (on one line for the Hopper GEMM of ln_matmul and mm_res),
+              and the card's name and power limit.
 2. kernels  — each kernel against its plain PyTorch version on the same
               inputs at the main paths' shapes, with the tolerances below,
               and a planted lower-precision control that must fail them;
@@ -17,8 +18,11 @@ Phases, each of which exits non-zero on failure:
               and types that reach the kernels' other instances. The fused
               block entry and exit (ln_matmul, mm_res) at GPT-2 small's four
               training shapes, timed beside the cuBLAS composition of the
-              same function; and matmul_residual's bf16 backward products
-              against the f32 products they stand for. The flash backward
+              same function, each case run twice and bitwise equal, with
+              two planted controls at each training shape (a float8
+              operand; each row paired with the row 8 below it) that must
+              fail; and matmul_residual's bf16 backward products against
+              the f32 products they stand for. The flash backward
               runs twice on the same inputs and must be bitwise equal;
               each timed flash case prints its time over SDPA's and its
               share of the bound. GPT-2 small's LM head at one training
@@ -148,11 +152,16 @@ BWD_CONTROL = "ds in float8_e4m3"
 #     2^-7 of the largest |ref|; f32 1e-5, summation order only, over up
 #     to 6400 terms), and the root mean square of the error over that of
 #     ref (bf16 3e-3: flips are rare, so this stays far below the ulp;
-#     f32 1e-5). The control, the normalised row (ln_matmul) or a
-#     (mm_res) rounded to float8_e4m3 before the product (a
-#     lower-precision product), must fail one of the checks.
+#     f32 1e-5). Two controls at each training shape must fail one of
+#     the checks: the normalised row (ln_matmul) or a (mm_res) rounded to
+#     float8_e4m3 before the product (a lower-precision product); and
+#     each row paired with the row 8 below it, the two rows a thread of
+#     the bf16 kernels holds in its register fragments: the layernorm of
+#     row r taken with row r + 8's mean and rstd (ln_matmul), or row r + 8's
+#     residual added to row r (mm_res), rows wrapping at the end.
 TOL_FUSED = {"bfloat16": 1e-2, "float32": 1e-5}
 TOL_FUSED_RMS = {"bfloat16": 3e-3, "float32": 1e-5}
+FUSED_CONTROLS = ("float8 operand", "row r + 8's statistics or residual")
 #   GPT-2 small gradients at B=4, S=1024, fused model against the unfused
 #   one (both flash, bf16): each parameter's ||g - g_ref|| / ||g_ref|| at
 #   most TOL_FUSED_GRAD, b_qkv's key third left out as above. The paths
@@ -266,8 +275,11 @@ TOL_LOSS0 = 0.05
 # Device kernels of a profiled step, by class: (class, name fragments).
 KERNEL_CLASSES = (("flash_fwd", ("flash_fwd_",)),
                   ("flash_bwd", ("flash_bwd_",)),
-                  ("ln_matmul", ("ln_matmul_kernel",)),
-                  ("mm_res", ("mm_res_kernel",)),
+                  ("ln_matmul", ("ln_stats_kernel", "ln_matmul_f32_kernel",
+                                 "gemm_kernel<128, true>",
+                                 "gemm_kernel<256, true>")),
+                  ("mm_res", ("mm_res_f32_kernel", "gemm_kernel<128, false>",
+                              "gemm_kernel<256, false>")),
                   ("matmul", ("gemm", "nvjet", "xmma", "cutlass")),
                   ("optimizer", ("multi_tensor_apply",)))
 ENGINE_CONFIG = dict(max_batch=8, num_blocks=256, block_size=16,
@@ -452,9 +464,11 @@ def fused_agrees(scaled, rms, dtype):
     return scaled <= TOL_FUSED[dtype] and rms <= TOL_FUSED_RMS[dtype]
 
 
-def fused_control(kernel, args):
-    """Control: the plain version with the normalised row (ln_matmul) or a
-    (mm_res) rounded to float8_e4m3 before the product."""
+def fused_control(kernel, args, fault):
+    """A control (one of FUSED_CONTROLS): the plain version with the
+    normalised row (ln_matmul) or a (mm_res) rounded to float8_e4m3 before
+    the product; or with row r taking row r + 8's statistics (ln_matmul)
+    or residual (mm_res)."""
     import torch
 
     from ray_tpu_torch.ops.fused import _ln_ref
@@ -462,20 +476,34 @@ def fused_control(kernel, args):
     f8 = torch.float8_e4m3fn
     if kernel == "ln_matmul":
         x, g, b, w, wb = args
-        h = _ln_ref(x, g, b, 1e-5).to(f8).float()
+        if fault == FUSED_CONTROLS[0]:
+            h = _ln_ref(x, g, b, 1e-5).to(f8).float()
+        else:
+            xf = x.float()
+            mean = xf.mean(-1, keepdim=True)
+            var = (xf - mean).square().mean(-1, keepdim=True)
+            mean, var = mean.roll(-8, 0), var.roll(-8, 0)
+            h = ((xf - mean) * torch.rsqrt(var + 1e-5) * g.float()
+                 + b.float()).to(w.dtype).float()
         return (h @ w.float() + wb.float()).to(x.dtype)
     a, w, b, res = args
-    return (a.to(f8).float() @ w.float() + b.float()
-            + res.float()).to(a.dtype)
+    if fault == FUSED_CONTROLS[0]:
+        return (a.to(f8).float() @ w.float() + b.float()
+                + res.float()).to(a.dtype)
+    return (a.float() @ w.float() + b.float()
+            + res.float().roll(-8, 0)).to(a.dtype)
 
 
 def phase_kernels_fused():
     """ln_matmul and mm_res against their plain versions at the training
     path's shapes, timed beside the plain version and beside the cuBLAS
     composition of the same function (there is no single PyTorch call:
-    addmm(wb, layer_norm(x), w) and addmm(res + b, a, w)); untimed checks
-    at f32 and at other shapes; then matmul_residual's backward products
-    in bf16 against the f32 products they stand for."""
+    addmm(wb, layer_norm(x), w) and addmm(res + b, a, w)), with the ratio
+    to the composition and the share of the bound printed against the
+    bars (not enforced: at most 1.0x the composition; at least 50% of the
+    bound at FC and MLP out); untimed checks at f32 and at other shapes;
+    every case run twice, bitwise equal; then matmul_residual's backward
+    products in bf16 against the f32 products they stand for."""
     import torch
     import torch.nn.functional as F
 
@@ -493,6 +521,9 @@ def phase_kernels_fused():
         fn, plain = fns[kernel]
         out = fn(*args)
         torch.cuda.synchronize()
+        # no split-K, no atomics: a second call is bitwise equal
+        check(torch.equal(out, fn(*args)),
+              f"{kernel} {label}: the output differs between two calls")
         ref = plain(*args)
         check(out.shape == (n, f) and out.dtype == args[0].dtype,
               f"{kernel} {label}: output {tuple(out.shape)} {out.dtype}")
@@ -500,15 +531,18 @@ def phase_kernels_fused():
               f"{kernel} {label}: non-finite output")
         err_abs = (out.float() - ref.float()).abs().max().item()
         scaled, rms = fused_errors(out, ref)
-        text = (f"{kernel} {label} [{n}, {k}] x [{k}, {f}] {dtype}: max abs "
+        text = (f"{kernel} {label} [{n}, {k}] x [{k}, {f}] {dtype}: bitwise "
+                f"equal over two calls; max abs "
                 f"err {err_abs:.3e}, scaled {scaled:.3e} (tol "
                 f"{TOL_FUSED[dtype]}), rms {rms:.3e} (tol "
                 f"{TOL_FUSED_RMS[dtype]})")
         row = dict(label=label, kernel=kernel, shape=[n, k, f], dtype=dtype,
                    max_abs_err=err_abs, scaled_err=scaled, rms_err=rms)
-        control = None
+        controls = {}
         if timed:
-            control = fused_errors(fused_control(kernel, args), ref)
+            controls = {fault: fused_errors(fused_control(kernel, args, fault),
+                                            ref)
+                        for fault in FUSED_CONTROLS}
             ms = cuda_ms(lambda: fn(*args), reps=20)
             plain_ms = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
             if kernel == "ln_matmul":
@@ -520,19 +554,28 @@ def phase_kernels_fused():
                 a, w, b, res = args
                 lib_ms = cuda_ms(lambda: torch.addmm(res + b, a, w), reps=20)
             bound_ms, bound_by = fused_bound(kernel, n, k, f, dtype)
+            bars = [f"{ms / lib_ms:.2f}x the composition (bar 1.0x: "
+                    f"{'met' if ms <= lib_ms else 'not met'})"]
+            if label == FUSED_MAIN[kernel]:
+                bars.append(f"bar 50% of bound: "
+                            f"{'met' if bound_ms / ms >= 0.5 else 'not met'}")
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
-                       control_scaled_err=control[0],
-                       control_rms_err=control[1])
-            text += (f"; control (float8 operand): scaled {control[0]:.3e}, "
-                     f"rms {control[1]:.3e}; kernel {ms:.4f} ms, plain "
+                       over_library=ms / lib_ms, bound_share=bound_ms / ms,
+                       controls={c: dict(scaled_err=e[0], rms_err=e[1])
+                                 for c, e in controls.items()})
+            text += "".join(f"; control ({c}): scaled {e[0]:.3e}, rms "
+                            f"{e[1]:.3e}" for c, e in controls.items())
+            text += (f"; kernel {ms:.4f} ms, plain "
                      f"{plain_ms:.4f} ms, cuBLAS composition {lib_ms:.4f} "
-                     f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+                     f"ms, bound {bound_ms:.4f} ms ({bound_by}); "
+                     f"{bound_ms / ms:.1%} of bound; " + "; ".join(bars))
         print(f"[kernels] {text}")
         check(fused_agrees(scaled, rms, dtype),
               f"{kernel} {label} disagrees with its plain version")
-        check(control is None or not fused_agrees(*control, dtype),
-              f"{kernel} {label}: the float8 control passes the check")
+        for fault, e in controls.items():
+            check(not fused_agrees(*e, dtype),
+                  f"{kernel} {label}: the control ({fault}) passes the check")
         rows.append(row)
         del args, out, ref
         torch.cuda.empty_cache()
@@ -608,6 +651,38 @@ def control_forward(name, model, params, tokens):
         llama_mod.mha_reference = sound
 
 
+def ptxas_kernels(report):
+    """[(entry function, registers, 'N bytes spill stores, M bytes spill
+    loads')] from nvcc's -Xptxas -v report, the entry functions' mangled
+    names shortened to their names and int/bool template arguments."""
+    import re
+
+    found, fn, spills = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            # length-prefixed identifiers of the mangled name: the kernel's
+            mangled = m.group(1)
+            name = next((mangled[i.end(1):i.end(1) + int(i.group(1))]
+                         for i in re.finditer(r"(?=(\d+)[A-Za-z_])", mangled)
+                         if mangled[i.end(1):i.end(1) + int(i.group(1))]
+                         .endswith("_kernel")), mangled[:40])
+            targs = re.findall(r"L([ib])(\d+)E", mangled)
+            fn = name + (
+                "<" + ", ".join(v if t == "i" else ("true" if v == "1"
+                                                   else "false")
+                                for t, v in targs) + ">" if targs else "")
+            spills = ""
+        m = re.search(r"(\d+ bytes spill stores, \d+ bytes spill loads)", line)
+        if m:
+            spills = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            found.append((fn, int(m.group(1)), spills))
+            fn = None
+    return found
+
+
 def phase_build():
     from ray_tpu_torch.ops import _build
 
@@ -620,6 +695,12 @@ def phase_build():
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] {', '.join(KERNEL_SOURCES)} built together in "
           f"{build_s:.2f} s")
+    gemm = [f"{name} {fn}: {regs} registers, {spills}"
+            for name in ("ln_matmul", "mm_res")
+            for fn, regs, spills in ptxas_kernels(reports[name])
+            if "gemm_kernel" in fn]
+    print("[build] Hopper GEMM (hopper_gemm.cuh) ptxas: "
+          + ("; ".join(gemm) or "library was current, no report"))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -24,56 +24,97 @@
 // against 0.076 and 0.095 ms for the bytes). So the kernel has to keep the
 // tensor cores busy; the layernorm is a prologue.
 //
-// Design (simple and right first; speed is later work): two kernels, one
-// launch of the wrapper.
-//   - ln_stats_kernel: one warp per row reads x twice (16-byte loads) and
-//     writes mean and rstd, f32, to the scratch: every row's statistics
-//     once, instead of once for each of the F / 128 column tiles that
-//     need them.
-//   - ln_matmul_kernel: the tiled GEMM of tile_gemm.cuh (128 x 128 output
-//     tiles of 8 warps, K in chunks of 32, two shared buffers and a
-//     register prefetch, wmma 16x16x16 bf16 -> f32; f32 inputs: FMA
-//     loops), the grid's x over column tiles so that neighbouring blocks
-//     read the same rows of x from L2. Its A producer normalises each x
-//     chunk in registers on the way into shared memory ((x - mean) * rstd
-//     * g + b in f32, rounded to w's type), so shared memory does not grow
-//     with D (a normalised [128, D] tile would not fit at GPT-2 xl's
-//     D = 1600). Epilogue: acc + wb in f32, one cast, 16-byte stores.
-// Not done yet, and why it is slow: wmma (mma.sync) rather than wgmma and
-// TMA; a two-deep pipeline through registers rather than a ring of tiles in
-// shared memory; x is renormalised for each column tile.
+// Design: two kernels, one launch of the wrapper.
+//   - ln_stats_kernel: one warp a row keeps the row in registers (up to
+//     1024 bf16 or 512 f32 values; the rest of a longer row is read again)
+//     and writes mean and rstd, f32, to the scratch: every row's statistics
+//     once, in one read of x, instead of once for each column tile.
+//   - bf16: the warp-specialised wgmma GEMM of hopper_gemm.cuh with its
+//     layernorm prologue: the raw x tile arrives by TMA, and each consumer
+//     normalises its rows in registers (ldmatrix, then f32 arithmetic with
+//     the row statistics in registers and g, b in the stage) into the
+//     register A operand of wgmma; 128 x 256 output tiles, so each x tile
+//     is normalised once for 256 columns; epilogue acc + wb in f32, one
+//     cast, TMA stores.
+//   - f32: the FMA GEMM of tile_gemm.cuh, whose A producer normalises each
+//     x chunk on its way into shared memory.
 
+#include "hopper_gemm.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
 
-using namespace tile_gemm;
+constexpr int BN = 256;         // columns of the bf16 GEMM's output tile
+constexpr int STATS_WARPS = 8;
+constexpr int STATS_VECS = 4;   // 16-byte pieces of a row a lane keeps
 
-// mean and rstd of each row of x, one warp a row.
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(hopper::bf16 x) { return __bfloat162float(x); }
+
+// The values of a 16-byte piece of a row, as f32.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[16 / sizeof(T)]) {
+  alignas(16) T h[16 / sizeof(T)];
+  *reinterpret_cast<uint4*>(h) = v;
+#pragma unroll
+  for (int e = 0; e < 16 / static_cast<int>(sizeof(T)); ++e) f[e] = to_f(h[e]);
+}
+
+// mean and rstd of each row of x, one warp a row: lane l sums pieces l,
+// l + 32, ... of the row (the first STATS_VECS of them kept in registers
+// for the second pass, the rest of a longer row read again), then the
+// mean of squared deviations.
+template <typename T>
+__global__ void __launch_bounds__(STATS_WARPS * 32)
 ln_stats_kernel(const T* __restrict__ x, float* __restrict__ mean,
                 float* __restrict__ rstd, int N, int D, float eps) {
-  constexpr int EPC = Smem<T>::EPC;
+  constexpr int EPC = 16 / sizeof(T);
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * WARPS + threadIdx.x / 32;
+  const int row = blockIdx.x * STATS_WARPS + threadIdx.x / 32;
   if (row >= N) return;
   const T* xr = x + static_cast<long long>(row) * D;
+  uint4 v[STATS_VECS];
   float s = 0.0f;
-  for (int c = lane * EPC; c < D; c += 32 * EPC) {
-    alignas(16) T v[EPC];
-    *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(xr + c);
 #pragma unroll
-    for (int e = 0; e < EPC; ++e) s += to_f(v[e]);
+  for (int j = 0; j < STATS_VECS; ++j) {
+    const int c = (lane + 32 * j) * EPC;
+    v[j] = make_uint4(0u, 0u, 0u, 0u);
+    if (c < D) v[j] = *reinterpret_cast<const uint4*>(xr + c);
+    float f[EPC];
+    unpack<T>(v[j], f);
+#pragma unroll
+    for (int e = 0; e < EPC; ++e) s += f[e];
+  }
+  for (int c = (lane + 32 * STATS_VECS) * EPC; c < D; c += 32 * EPC) {
+    float f[EPC];
+    unpack<T>(*reinterpret_cast<const uint4*>(xr + c), f);
+#pragma unroll
+    for (int e = 0; e < EPC; ++e) s += f[e];
   }
   const float mu = warp_sum(s) / static_cast<float>(D);
   float s2 = 0.0f;
-  for (int c = lane * EPC; c < D; c += 32 * EPC) {
-    alignas(16) T v[EPC];
-    *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(xr + c);
+#pragma unroll
+  for (int j = 0; j < STATS_VECS; ++j) {
+    if ((lane + 32 * j) * EPC >= D) continue;
+    float f[EPC];
+    unpack<T>(v[j], f);
 #pragma unroll
     for (int e = 0; e < EPC; ++e) {
-      const float d = to_f(v[e]) - mu;
+      const float d = f[e] - mu;
+      s2 = fmaf(d, d, s2);
+    }
+  }
+  for (int c = (lane + 32 * STATS_VECS) * EPC; c < D; c += 32 * EPC) {
+    float f[EPC];
+    unpack<T>(*reinterpret_cast<const uint4*>(xr + c), f);
+#pragma unroll
+    for (int e = 0; e < EPC; ++e) {
+      const float d = f[e] - mu;
       s2 = fmaf(d, d, s2);
     }
   }
@@ -84,78 +125,75 @@ ln_stats_kernel(const T* __restrict__ x, float* __restrict__ mean,
   }
 }
 
+// ---- f32: FMA GEMM -------------------------------------------------------------
+
+using tile_gemm::Smem;
+
 // This thread's share of the A chunk: x[m0.., k0:k0+BK] fetched raw into
 // registers, normalised on the store into shared memory.
-template <typename T>
 struct LnPrologue {
-  using L = Smem<T>;
-  const T* x;
+  const float* x;
   const float* g;
   const float* b;
   const float* mean;   // shared memory, the block's rows
   const float* rstd;
   int N, D, m0, tid;
   int k0;
-  uint4 v[L::A_VECS];
+  float4 v[Smem::A_VECS];
 
   __device__ __forceinline__ void fetch(int k) {
     k0 = k;
 #pragma unroll
-    for (int j = 0; j < L::A_VECS; ++j) {
+    for (int j = 0; j < Smem::A_VECS; ++j) {
       int r, c;
-      a_piece<T>(tid, j, r, c);
-      v[j] = make_uint4(0u, 0u, 0u, 0u);
+      tile_gemm::a_piece(tid, j, r, c);
+      v[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (m0 + r < N)
-        v[j] = *reinterpret_cast<const uint4*>(x + static_cast<long long>(m0 + r) * D + k0 + c);
+        v[j] = *reinterpret_cast<const float4*>(x + static_cast<long long>(m0 + r) * D + k0 + c);
     }
   }
-  __device__ __forceinline__ void store(T* As) const {
+  __device__ __forceinline__ void store(float* As) const {
 #pragma unroll
-    for (int j = 0; j < L::A_VECS; ++j) {
+    for (int j = 0; j < Smem::A_VECS; ++j) {
       int r, c;
-      a_piece<T>(tid, j, r, c);
-      alignas(16) T h[L::EPC];
-      *reinterpret_cast<uint4*>(h) = v[j];
+      tile_gemm::a_piece(tid, j, r, c);
+      float h[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
       const float mu = mean[r], rs = rstd[r];
 #pragma unroll
-      for (int e = 0; e < L::EPC; ++e) {
-        const float n = (to_f(h[e]) - mu) * rs;
-        h[e] = from_f<T>(n * g[k0 + c + e] + b[k0 + c + e]);
+      for (int e = 0; e < 4; ++e) {
+        const float n = (h[e] - mu) * rs;
+        h[e] = n * g[k0 + c + e] + b[k0 + c + e];
       }
-      *reinterpret_cast<uint4*>(As + r * L::AP + c) = *reinterpret_cast<const uint4*>(h);
+      *reinterpret_cast<float4*>(As + r * Smem::AP + c) = make_float4(h[0], h[1], h[2], h[3]);
     }
   }
 };
 
 struct BiasEpilogue {
   const float* wb;
-  template <int n>
-  __device__ __forceinline__ void operator()(float (&v)[n], int row, int col) const {
-#pragma unroll
-    for (int e = 0; e < n; ++e) v[e] += wb[col + e];
+  __device__ __forceinline__ float operator()(float v, int row, int col) const {
+    return v + wb[col];
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-ln_matmul_kernel(const T* __restrict__ x, const float* __restrict__ g,
-                 const float* __restrict__ b, const T* __restrict__ w,
-                 const float* __restrict__ wb, const float* __restrict__ stats,
-                 T* __restrict__ out, int N, int D, int F) {
-  using L = Smem<T>;
+__global__ void __launch_bounds__(tile_gemm::THREADS, 2)
+ln_matmul_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                     const float* __restrict__ b, const float* __restrict__ w,
+                     const float* __restrict__ wb, const float* __restrict__ stats,
+                     float* __restrict__ out, int N, int D, int F) {
   extern __shared__ __align__(128) unsigned char smem[];
-  float* mean = reinterpret_cast<float*>(smem + L::extra_off);
-  float* rstd = mean + L::BM;
+  float* mean = reinterpret_cast<float*>(smem + Smem::extra_off);
+  float* rstd = mean + tile_gemm::BM;
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * L::BM, n0 = blockIdx.x * BN;
-  for (int r = tid; r < L::BM; r += THREADS) {
+  const int m0 = blockIdx.y * tile_gemm::BM, n0 = blockIdx.x * tile_gemm::BN;
+  for (int r = tid; r < tile_gemm::BM; r += tile_gemm::THREADS) {
     const bool in = m0 + r < N;
     mean[r] = in ? stats[m0 + r] : 0.0f;
     rstd[r] = in ? stats[N + m0 + r] : 0.0f;
   }
   __syncthreads();
-  LnPrologue<T> a{x, g, b, mean, rstd, N, D, m0, tid};
-  gemm_tile<T>(w, out, N, D, F, m0, n0, smem, a, BiasEpilogue{wb});
+  LnPrologue a{x, g, b, mean, rstd, N, D, m0, tid};
+  tile_gemm::gemm_tile(w, out, N, D, F, m0, n0, smem, a, BiasEpilogue{wb});
 }
 
 template <typename T>
@@ -163,26 +201,34 @@ cudaError_t run(const void* x, const void* g, const void* b, const void* w,
                 const void* wb, void* stats, void* out, int N, int D, int F,
                 float eps, cudaStream_t stream) {
   float* mean = static_cast<float*>(stats);
-  ln_stats_kernel<T><<<(N + WARPS - 1) / WARPS, THREADS, 0, stream>>>(
+  ln_stats_kernel<T><<<(N + STATS_WARPS - 1) / STATS_WARPS, STATS_WARPS * 32, 0, stream>>>(
       static_cast<const T*>(x), mean, mean + N, N, D, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch<T>(ln_matmul_kernel<T>, Smem<T>::bytes(2 * Smem<T>::BM), N, F, stream,
-                   static_cast<const T*>(x), static_cast<const float*>(g),
-                   static_cast<const float*>(b), static_cast<const T*>(w),
-                   static_cast<const float*>(wb), static_cast<const float*>(stats),
-                   static_cast<T*>(out), N, D, F);
+  if constexpr (sizeof(T) == 2) {
+    const hgemm::Params p{static_cast<const float*>(wb), static_cast<const float*>(g),
+                          static_cast<const float*>(b), mean, N, D, F};
+    return hgemm::launch<BN, true>(x, w, out, nullptr, p, stream);
+  } else {
+    return tile_gemm::launch(ln_matmul_f32_kernel, Smem::bytes(2 * tile_gemm::BM), N, F,
+                             stream, static_cast<const float*>(x),
+                             static_cast<const float*>(g), static_cast<const float*>(b),
+                             static_cast<const float*>(w), static_cast<const float*>(wb),
+                             static_cast<const float*>(stats), static_cast<float*>(out), N,
+                             D, F);
+  }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (of x, w and out); stats: 2 * N floats of
-// scratch. Returns the first failing launch's cudaError_t, or 0.
+// scratch. Returns the first failing launch's cudaError_t (also
+// cudaErrorInvalidValue when a tensor map cannot be encoded), or 0.
 extern "C" int ln_matmul(const void* x, const void* g, const void* b, const void* w,
                          const void* wb, void* stats, void* out, int N, int D, int F,
                          int dtype, float eps, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 1) return run<tile_gemm::bf16>(x, g, b, w, wb, stats, out, N, D, F, eps, s);
+  if (dtype == 1) return run<hopper::bf16>(x, g, b, w, wb, stats, out, N, D, F, eps, s);
   if (dtype == 0) return run<float>(x, g, b, w, wb, stats, out, N, D, F, eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -22,99 +22,90 @@
 // w [3072, 768] (MLP out) is 193 GFLOP against 382 MB, bound by the
 // operations (0.195 ms against 0.114 ms).
 //
-// Design (simple and right first; speed is later work): the tiled wmma GEMM
-// of tile_gemm.cuh (128 x 128 output tiles of 8 warps, K in chunks of 32,
-// two shared buffers and a register prefetch; FMA loops for f32) with an
-// epilogue that reads the bias and the residual tile and adds both in f32
-// before the one cast (16-byte loads and stores of res and out).
-// Not done yet, and why it is slow: as ln_matmul.cu (wmma rather than wgmma
-// and TMA, a two-deep pipeline through registers).
+// Design:
+//   - bf16: the warp-specialised wgmma GEMM of hopper_gemm.cuh, both operands
+//     from shared memory by TMA; the producer prefetches the residual tile
+//     by TMA during the K loop (the projection has only 12 steps of K and
+//     is bound by its bytes, so the residual must not be waited for after
+//     the products); epilogue (acc + b) + res in f32 from the registers and
+//     the staged residual, one cast, TMA stores.
+//   - f32: the FMA GEMM of tile_gemm.cuh with an epilogue that reads the
+//     bias and the residual and adds both in f32.
 
+#include "hopper_gemm.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
 
-using namespace tile_gemm;
+constexpr int BN = 128;         // columns of the bf16 GEMM's output tile
+
+// ---- f32: FMA GEMM -------------------------------------------------------------
+
+using tile_gemm::Smem;
 
 // This thread's share of the A chunk a[m0.., k0:k0+BK], rows past N as
 // zeros: fetched into registers, stored into shared memory as it is.
-template <typename T>
 struct CopyPrologue {
-  using L = Smem<T>;
-  const T* a;
+  const float* a;
   int N, K, m0, tid;
-  uint4 v[L::A_VECS];
+  float4 v[Smem::A_VECS];
 
   __device__ __forceinline__ void fetch(int k0) {
 #pragma unroll
-    for (int j = 0; j < L::A_VECS; ++j) {
+    for (int j = 0; j < Smem::A_VECS; ++j) {
       int r, c;
-      a_piece<T>(tid, j, r, c);
-      v[j] = make_uint4(0u, 0u, 0u, 0u);
+      tile_gemm::a_piece(tid, j, r, c);
+      v[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (m0 + r < N)
-        v[j] = *reinterpret_cast<const uint4*>(a + static_cast<long long>(m0 + r) * K + k0 + c);
+        v[j] = *reinterpret_cast<const float4*>(a + static_cast<long long>(m0 + r) * K + k0 + c);
     }
   }
-  __device__ __forceinline__ void store(T* As) const {
+  __device__ __forceinline__ void store(float* As) const {
 #pragma unroll
-    for (int j = 0; j < L::A_VECS; ++j) {
+    for (int j = 0; j < Smem::A_VECS; ++j) {
       int r, c;
-      a_piece<T>(tid, j, r, c);
-      *reinterpret_cast<uint4*>(As + r * L::AP + c) = v[j];
+      tile_gemm::a_piece(tid, j, r, c);
+      *reinterpret_cast<float4*>(As + r * Smem::AP + c) = v[j];
     }
   }
 };
 
-template <typename T>
 struct BiasResidualEpilogue {
   const float* b;
-  const T* res;
+  const float* res;
   int F;
-
-  template <int n>
-  __device__ __forceinline__ void operator()(float (&v)[n], int row, int col) const {
-    const T* r = res + static_cast<long long>(row) * F + col;
-    alignas(16) T rv[n];
-    if constexpr (n * sizeof(T) == 16) {
-      *reinterpret_cast<uint4*>(rv) = *reinterpret_cast<const uint4*>(r);
-    } else {
-#pragma unroll
-      for (int e = 0; e < n; ++e) rv[e] = r[e];
-    }
-#pragma unroll
-    for (int e = 0; e < n; ++e) v[e] = (v[e] + b[col + e]) + to_f(rv[e]);
+  __device__ __forceinline__ float operator()(float v, int row, int col) const {
+    return (v + b[col]) + res[static_cast<long long>(row) * F + col];
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-mm_res_kernel(const T* __restrict__ a, const T* __restrict__ w,
-              const float* __restrict__ b, const T* __restrict__ res,
-              T* __restrict__ out, int N, int K, int F) {
+__global__ void __launch_bounds__(tile_gemm::THREADS, 2)
+mm_res_f32_kernel(const float* __restrict__ a, const float* __restrict__ w,
+                  const float* __restrict__ b, const float* __restrict__ res,
+                  float* __restrict__ out, int N, int K, int F) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int m0 = blockIdx.y * Smem<T>::BM, n0 = blockIdx.x * BN;
-  CopyPrologue<T> load_a{a, N, K, m0, static_cast<int>(threadIdx.x)};
-  gemm_tile<T>(w, out, N, K, F, m0, n0, smem, load_a,
-               BiasResidualEpilogue<T>{b, res, F});
-}
-
-template <typename T>
-cudaError_t run(const void* a, const void* w, const void* b, const void* res,
-                void* out, int N, int K, int F, cudaStream_t stream) {
-  return launch<T>(mm_res_kernel<T>, Smem<T>::bytes(0), N, F, stream,
-                static_cast<const T*>(a), static_cast<const T*>(w),
-                static_cast<const float*>(b), static_cast<const T*>(res),
-                static_cast<T*>(out), N, K, F);
+  const int m0 = blockIdx.y * tile_gemm::BM, n0 = blockIdx.x * tile_gemm::BN;
+  CopyPrologue load_a{a, N, K, m0, static_cast<int>(threadIdx.x)};
+  tile_gemm::gemm_tile(w, out, N, K, F, m0, n0, smem, load_a,
+                       BiasResidualEpilogue{b, res, F});
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (of a, w, res and out). Returns the
-// launch's cudaError_t.
+// launch's cudaError_t (cudaErrorInvalidValue also when a tensor map cannot
+// be encoded).
 extern "C" int mm_res(const void* a, const void* w, const void* b, const void* res,
                       void* out, int N, int K, int F, int dtype, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 1) return run<tile_gemm::bf16>(a, w, b, res, out, N, K, F, s);
-  if (dtype == 0) return run<float>(a, w, b, res, out, N, K, F, s);
+  if (dtype == 1) {
+    const hgemm::Params p{static_cast<const float*>(b), nullptr, nullptr, nullptr, N, K, F};
+    return hgemm::launch<BN, false>(a, w, out, res, p, s);
+  }
+  if (dtype == 0)
+    return tile_gemm::launch(mm_res_f32_kernel, Smem::bytes(0), N, F, s,
+                             static_cast<const float*>(a), static_cast<const float*>(w),
+                             static_cast<const float*>(b), static_cast<const float*>(res),
+                             static_cast<float*>(out), N, K, F);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -31,9 +31,12 @@ jfused = importlib.import_module("ray_tpu.ops.fused")
 tgpt = importlib.import_module("ray_tpu_torch.models.gpt")
 
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
-# a JAX grid of (3, 2) blocks: 192 rows in blocks of 64, 256 columns in
-# blocks of 128
-N, D, F, BLOCK_M, BLOCK_N = 192, 64, 256, 64, 128
+# (N, D, F, block_m, block_n) of the JAX side. The first gives a grid of
+# (3, 2) blocks: 192 rows in blocks of 64, 256 columns in blocks of 128.
+# The second a grid of (5, 5): rows that are not a multiple of the CUDA
+# kernels' 128-row tile, an odd number of 64-wide K chunks, and a last
+# 128-column tile half full.
+SHAPES = [(192, 64, 256, 64, 128), (200, 192, 320, 40, 64)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -66,10 +69,12 @@ def _np(x):
     return np.asarray(x, dtype=np.float32)
 
 
-def _case(kernel, seed, dtype):
+def _case(kernel, seed, dtype, shape=SHAPES[0]):
     """(JAX function, port function, [(array, dtype)] inputs, cotangent) of
-    one fused kernel. The layernorm's gain and shift stay f32 whatever the
-    dtype (raw parameters, as at the model's call site)."""
+    one fused kernel at ``shape`` (one of SHAPES). The layernorm's gain and
+    shift stay f32 whatever the dtype (raw parameters, as at the model's
+    call site)."""
+    N, D, F, BLOCK_M, BLOCK_N = shape
     rng = np.random.default_rng(seed)
     r = lambda *s: rng.standard_normal(s, dtype=np.float32)  # noqa: E731
     if kernel == "ln_matmul":
@@ -88,13 +93,16 @@ def _case(kernel, seed, dtype):
     return jfn, tfn, args, r(N, F)
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(
+    str, s[:3])))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kernel,body", [("ln_matmul", "_ln_matmul_kernel"),
                                          ("matmul_residual",
                                           "_mm_res_kernel")])
-def test_fused_op_and_grads_match_jax_pallas(kernel, body, dtype,
+def test_fused_op_and_grads_match_jax_pallas(kernel, body, dtype, shape,
                                              monkeypatch):
-    jfn, tfn, args, cot = _case(kernel, 1, dtype)
+    jfn, tfn, args, cot = _case(kernel, 1, dtype, shape)
+    N, _, F, _, _ = shape
     calls = _spy(monkeypatch, body)
     out, vjp = jax.vjp(jfn, *(jnp.asarray(a, getattr(jnp, t))
                               for a, t in args))

@@ -56,8 +56,31 @@ def test_port_files_exist():
                  *NO_TRY_FILES):
         assert want in names
     for kernel in ("flash_fwd.cu", "flash_bwd.cu", "ln_matmul.cu",
-                   "mm_res.cu", "tile_gemm.cuh", "hopper.cuh"):
+                   "mm_res.cu", "tile_gemm.cuh", "hopper.cuh",
+                   "hopper_gemm.cuh"):
         assert (ROOT / "ray_tpu_torch" / "csrc" / kernel).exists()
+
+
+def test_fused_kernels_are_hand_written_wgmma_and_tma():
+    """The bf16 fused entry and exit run the GEMM of hopper_gemm.cuh
+    (wgmma, TMA loads and stores); no source of theirs reaches a library
+    GEMM or the mma.sync fragments of nvcuda::wmma, and the f32 GEMM of
+    tile_gemm.cuh is FMA only."""
+    csrc = ROOT / "ray_tpu_torch" / "csrc"
+    texts = {name: (csrc / name).read_text() for name in (
+        "ln_matmul.cu", "mm_res.cu", "hopper_gemm.cuh", "tile_gemm.cuh",
+        "hopper.cuh")}
+    for name in ("ln_matmul.cu", "mm_res.cu"):
+        assert '#include "hopper_gemm.cuh"' in texts[name], name
+        assert "hgemm::launch<" in texts[name], name
+    gemm = texts["hopper_gemm.cuh"]
+    for used in ("Wgmma<BN, 1>::rs", "Wgmma<BN, 1>::ss", "tma_load_2d",
+                 "tma_store_2d", "ldmatrix_x4"):
+        assert used in gemm, used
+    for name, text in texts.items():
+        for banned in ("wmma::", "mma.h", "cublas", "cutlass", "mma.sync"):
+            assert banned not in text.lower(), (name, banned)
+    assert "fmaf(" in texts["tile_gemm.cuh"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
