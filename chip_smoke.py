@@ -52,11 +52,32 @@ Phases, each of which exits non-zero on failure:
               the flash kernels once; the same loss checks; then a
               gradient check at B=4 against the unfused model, which two
               planted faults in the fused backward must fail.
+7. gpt serving — build_model("gpt2-small") (full width, f32 params, bf16
+              compute, random weights from seed 0) served by LLMEngine
+              with the prefix cache off and on, at the traffic harness's
+              engine shape, on the same 8 requests of 32 new tokens (two
+              48-token system prompts opening three requests each, a
+              request that shares 44 tokens of one and diverges mid-block,
+              and a repeat of an earlier prompt): one untimed run each
+              way, then GPT_SERVING_PAIRS timed off/on pairs in
+              alternating order. Every request finishes by length; no KV
+              block leaks; the radix tree's invariants hold; the cache
+              hits and copies a block on write; each first-token logits
+              vector (full prefill or suffix extend) matches the dense
+              flash forward of its prompt; the cache-on streams equal the
+              cache-off ones up to a near-tie; two planted controls (the
+              extend embedding positions 0..S-1, the block copy skipped)
+              must fail the logits check. Prints TTFT, the decode step,
+              tokens/s, the hit rate, and the host/device split of one
+              decode step of GPT-2 small and of Llama-2-7B (the latter
+              after phase 4).
 
-Three main paths are counted: serving (phases 3-4), training (phase 5's
-steps) and fused training (phase 6's steps). Every launch count is zeroed
-just before each and read just after it; the kernel comparisons of phase
-2 and the gradient checks do not count.
+Four main paths are counted: serving (phases 3-4), training (phase 5's
+steps), fused training (phase 6's steps) and GPT serving (phase 7's timed
+engine runs, which launch no hand-written kernel). Every launch count is
+zeroed just before each and read just after it; the kernel comparisons
+of phase 2, the gradient checks and phase 7's dense reference forward do
+not count.
 The last three lines are the card (as nvidia-smi prints it), the kernels
 JSON line and the result JSON line. Without a CUDA device, or without the
 ray_tpu_torch package beside this file, the script fails before printing
@@ -285,6 +306,42 @@ KERNEL_CLASSES = (("flash_fwd", ("flash_fwd_",)),
 ENGINE_CONFIG = dict(max_batch=8, num_blocks=256, block_size=16,
                      max_blocks_per_seq=16, prefill_buckets=(16, 32, 64))
 N_REQUESTS, MAX_TOKENS = 8, 32
+# GPT-2 small serving: the engine shape of scripts/traffic_harness.py:51-53
+# and its traffic, cut to 8 requests: two system prompts of 48 tokens (6
+# blocks of 8), each opening 3 requests with 8-24 user tokens of their own,
+# one request sharing 44 tokens of a system prompt (a mid-block divergence,
+# so a copy on write), one repeating an earlier prompt in full.
+GPT_ENGINE_CONFIG = dict(block_size=8, num_blocks=256, max_batch=8,
+                         max_blocks_per_seq=16,
+                         prefill_buckets=(16, 32, 64, 128),
+                         max_prefill_tokens_per_step=128)
+GPT_SYSTEM_LEN, GPT_COW_SHARED, GPT_USER_LEN = 48, 44, (8, 24)
+#   GPT-2 small first-token logits (std about 0.55 at this random init:
+#   d_model * 0.02^2 = 0.31 is their variance), the engine's paged prefill
+#   or suffix extend against the dense flash forward of the whole prompt
+#   (padded to 128): max abs TOL_GPT_LOGITS, rms over the reference's std
+#   TOL_GPT_LOGITS_RMS. The paths round to bf16 at other places (the
+#   kernel's bf16 probabilities against mha_reference's f32 softmax, the
+#   extend's products over fewer rows), over 12 layers: on the H100 the
+#   sound run's worst request was 0.0298 / 0.0119. The two planted
+#   controls must fail the check: the skipped block copy gave 0.2154 /
+#   0.0931 at its worst request, the extend at positions 0..S-1 1.9185 /
+#   0.7913; the limits sit between. The same max abs is the near-tie limit
+#   of the stream comparison: a cache-on token may differ from the
+#   cache-off one only at a step whose cache-off top-two margin is under
+#   it.
+TOL_GPT_LOGITS = 0.1
+TOL_GPT_LOGITS_RMS = 0.05
+GPT_SERVING_CONTROLS = ("extend at positions 0..S-1", "block copy skipped")
+#   The decode steps whose host/device split is printed, at a full batch
+#   of 8: (block size, table width, position written), as each serving
+#   phase's engine and contexts have them.
+DECODE_SPLIT_SHAPE = {"GPT-2 small": (8, 16, 96), "Llama-2-7B": (16, 16, 64)}
+SPLIT_STEPS = 20
+#   Timed cache-off/cache-on pairs of GPT serving, after one untimed pass
+#   each way; the order alternates from pair to pair (off first, then on
+#   first), so that neither mode always runs first.
+GPT_SERVING_PAIRS = 4
 
 
 class SmokeFailure(Exception):
@@ -1306,10 +1363,10 @@ def phase_fused_grad_check(model, params):
         TOL_FUSED_GRAD, shown=FUSED_SHOWN)
 
 
-def profile_step(step, label):
-    """One training step under torch.profiler: device time by kernel
-    class and the device's idle share of the step (the profiler's own
-    host cost is inside the step's wall time)."""
+def profiled(fn):
+    """(wall ms, {kernel name: device ms}, kernel launches) of one call of
+    ``fn`` under torch.profiler (the profiler's own host cost is inside
+    the wall time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1317,13 +1374,20 @@ def profile_step(step, label):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {e.key: e.self_device_time_total / 1e3
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0}
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    return (wall_ms, {e.key: e.self_device_time_total / 1e3 for e in device},
+            sum(e.count for e in device))
+
+
+def profile_step(step, label):
+    """One training step under torch.profiler: device time by kernel
+    class and the device's idle share of the step."""
+    wall_ms, kernels, _ = profiled(step)
     by_class = {name: 0.0 for name, _ in KERNEL_CLASSES}
     by_class["other (elementwise, reductions, copies)"] = 0.0
     for key, ms in kernels.items():
@@ -1453,6 +1517,364 @@ def phase_training(kernel_ms, fused=False):
                          else phase_grad_check)(model, params)
     return out
 
+def decode_split(label, model, params):
+    """The host/device split of one decode step at a full batch of 8
+    (DECODE_SPLIT_SHAPE), one slot inactive: the wall p50 over
+    SPLIT_STEPS synchronised steps, then one step under torch.profiler
+    for its device-busy ms and kernel launches. The busy share is busy ms
+    over that wall p50; the profiled step's own wall, which carries the
+    profiler's host cost, is printed beside it."""
+    import torch
+
+    bs, width, pos = DECODE_SPLIT_SHAPE[label]
+    c = model.config
+    n = pos // bs + 1                        # blocks each slot holds
+    dev = params["wte"].device
+    cache = model.init_paged_cache(8 * n, bs, dev)
+    rows = torch.full((8, width), -1, dtype=torch.long, device=dev)
+    rows[:, :n] = torch.arange(8 * n, device=dev).reshape(8, n)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    tokens = torch.randint(0, c.vocab_size, (8,), generator=gen, device=dev)
+    positions = torch.full((8,), pos, dtype=torch.long, device=dev)
+    active = torch.ones(8, dtype=torch.bool, device=dev)
+    active[-1] = False                       # one slot's writes dropped
+
+    def step():
+        return model.paged_decode_step(params, cache, tokens, positions,
+                                       rows, active)
+
+    for _ in range(3):
+        step()
+    walls = []
+    for _ in range(SPLIT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    q1, _, q3 = statistics.quantiles(walls, n=4)
+    prof_wall, kernels, launches = profiled(step)
+    busy = sum(kernels.values())
+    print(f"[decode split] {label}, B=8 at position {pos}: wall p50 "
+          f"{wall:.3f} ms over {SPLIT_STEPS} steps (quartiles {q1:.3f}, "
+          f"{q3:.3f}); device busy {busy:.3f} ms (busy share "
+          f"{busy / wall:.4f}), {launches} kernel launches "
+          f"({wall * 1e3 / launches:.1f} us of wall each); profiled step "
+          f"{prof_wall:.3f} ms wall")
+    return dict(wall_p50_ms=wall, wall_q1_ms=q1, wall_q3_ms=q3,
+                device_busy_ms=busy, device_busy_share=busy / wall,
+                launches=launches, host_us_per_launch=wall * 1e3 / launches,
+                profiled_wall_ms=prof_wall)
+
+
+def gpt_serving_prompts(vocab):
+    """The phase's 8 prompts, from SEED (GPT_ENGINE_CONFIG's comment)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+
+    def user():
+        return rng.integers(1, vocab, int(rng.integers(
+            GPT_USER_LEN[0], GPT_USER_LEN[1] + 1))).tolist()
+
+    systems = [rng.integers(1, vocab, GPT_SYSTEM_LEN).tolist()
+               for _ in range(2)]
+    prompts = [systems[i % 2] + user() for i in range(6)]
+    diverging = user()
+    if diverging[0] == systems[0][GPT_COW_SHARED]:
+        diverging[0] = diverging[0] % (vocab - 1) + 1
+    prompts.append(systems[0][:GPT_COW_SHARED] + diverging)
+    prompts.append(list(prompts[0]))
+    return prompts
+
+
+def extend_positions_from_zero(model, params, cache, tokens, start, length,
+                               block_row):
+    """Control: GPT.paged_prefill_extend with C 1's fault, the suffix
+    embedded at positions 0..S-1 instead of start.. (used only by the
+    control run)."""
+    from ray_tpu_torch.ops import paged_attention_prefill, paged_write_prefill
+
+    x = model._embed(params["wte"], params["wpe"], tokens)
+    for li in range(model.config.n_layer):
+        lp = model._paged_layer_params(params, li)
+        q, k, v = model._paged_qkv(x, lp)
+        kl = paged_write_prefill(cache["k"][li], block_row, k[0], length,
+                                 start)
+        vl = paged_write_prefill(cache["v"][li], block_row, v[0], length,
+                                 start)
+        attn = paged_attention_prefill(q[0], kl, vl, block_row, start,
+                                       length)
+        x = model._paged_proj(x, attn, lp)
+    last = x[0, max(int(length) - 1, 0)]
+    return model._paged_logits(params, last), cache
+
+
+def run_gpt_engine(model, params, prompts, prefix_cache, fault=None):
+    """Serve ``prompts`` (GPT_MAX_TOKENS each, greedy) through one
+    LLMEngine, driven inline by run_until_idle. Records each request's
+    first-token logits (and whether a full prefill or an extend computed
+    them), the top-two logit margin behind every token, TTFT and each
+    decode step's time. Checks that every request finished by length,
+    that nothing ran off the card, and the pool's and the tree's
+    accounting. ``fault`` plants one of GPT_SERVING_CONTROLS."""
+    import torch
+
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+
+    engine = LLMEngine(model, params, EngineConfig(
+        **GPT_ENGINE_CONFIG, prefix_cache=prefix_cache))
+    check(engine.device.type == "cuda", f"engine on {engine.device}")
+    last = {}
+    first = {}               # request id -> (logits on host, how, cached)
+    margins = {}             # request id -> top-two margin of each token
+    decode_s, copies = [], []
+
+    def top2_margin(logits):
+        top = logits.float().topk(2, dim=-1).values
+        return (top[..., 0] - top[..., 1]).cpu()
+
+    def recording(kind, fn):
+        def run(*args):
+            logits, cache = fn(*args)
+            check(logits.is_cuda, f"{kind} logits on {logits.device}")
+            last["logits"] = logits.float().cpu()
+            last["how"] = kind
+            return logits, cache
+        return run
+
+    start_sequence = engine._start_sequence
+
+    def started(req, blocks, p, tok):
+        first[req.request_id] = (last["logits"], last["how"],
+                                 req.cache_hit_tokens)
+        margins[req.request_id] = [float(top2_margin(last["logits"]))]
+        start_sequence(req, blocks, p, tok)
+
+    def timed_decode(*args):
+        slots = {seq.slot: seq.req.request_id for seq in engine._running}
+        t0 = time.perf_counter()
+        logits, cache = run_decode(*args)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t0)
+        check(logits.is_cuda, f"decode logits on {logits.device}")
+        m = top2_margin(logits)
+        for slot, rid in slots.items():
+            margins[rid].append(float(m[slot]))
+        return logits, cache
+
+    extend = engine._extend_fn
+    if fault == "extend at positions 0..S-1":
+        def extend(*args):
+            return extend_positions_from_zero(model, *args)
+    cow = engine._cow_fn
+
+    def counted_cow(cache, src, dst):
+        copies.append((src, dst))
+        if fault == "block copy skipped":
+            return cache
+        return cow(cache, src, dst)
+
+    run_decode = engine._decode_fn
+    engine._prefill_fn = recording("prefill", engine._prefill_fn)
+    engine._extend_fn = recording("extend", extend)
+    engine._decode_fn = timed_decode
+    engine._cow_fn = counted_cow
+    engine._start_sequence = started
+    streams = [engine.add_request(p, max_tokens=MAX_TOKENS) for p in prompts]
+    reqs = list(engine._waiting)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run_until_idle(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = [st.tokens(timeout=1) for st in streams]
+    for i, (st, toks) in enumerate(zip(streams, tokens)):
+        check(st.finish_reason == "length" and len(toks) == MAX_TOKENS,
+              f"gpt serving request {i}: {st.finish_reason}, "
+              f"{len(toks)} tokens")
+    cache_stats = engine.cache_stats()
+    if prefix_cache:
+        engine.prefix_cache.check_invariants()
+        resident = engine.prefix_cache.resident_blocks
+        check(engine.pool.used_count == resident,
+              f"{engine.pool.used_count} blocks held, {resident} cached")
+        engine.prefix_cache.clear()
+    engine.pool.check_leaks()
+    check(engine.pool.used_count == 0, "KV blocks still held after serving")
+    ids = [r.request_id for r in reqs]
+    return dict(tokens=tokens, first=[first[r] for r in ids],
+                margins=[margins[r] for r in ids],
+                ttft_s=[r.first_token_at - r.submitted_at for r in reqs],
+                decode_s=decode_s, wall_s=wall, copies=len(copies),
+                cache_stats=cache_stats)
+
+
+def gpt_logits_agree(e):
+    return (e["max_abs"] <= TOL_GPT_LOGITS
+            and e["rms_over_std"] <= TOL_GPT_LOGITS_RMS)
+
+
+def phase_gpt_serving(wrappers):
+    """GPT-2 small through the paged engine, prefix cache off and on
+    (phase 7 of the module docstring). The launch counts of ``wrappers``
+    are zeroed just before the timed engine runs and read just after
+    them: the warm-up, the planted controls and the dense reference
+    forward are not the path."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention_fwd
+    from ray_tpu_torch.serve.llm import build_model
+
+    t0 = time.perf_counter()
+    model, params = build_model("gpt2-small", seed=SEED)
+    c = model.config
+    check((c.n_layer, c.d_model, c.n_head, c.head_dim, c.padded_vocab)
+          == (12, 768, 12, 64, 50304) and c.dtype == torch.bfloat16
+          and params["wte"].dtype == torch.float32
+          and params["wte"].is_cuda, f"not GPT-2 small on the card: {c}")
+    print(f"[gpt serving] build_model('gpt2-small') in "
+          f"{time.perf_counter() - t0:.1f} s, {model.num_params()} params")
+    prompts = gpt_serving_prompts(c.vocab_size)
+    for prefix_cache in (False, True):          # warm-up, untimed
+        run_gpt_engine(model, params, prompts, prefix_cache)
+    for f in wrappers:                  # the GPT serving path starts here
+        f.launches = 0
+    runs = {"off": [], "on": []}
+    for i in range(GPT_SERVING_PAIRS):
+        for name in (("off", "on") if i % 2 == 0 else ("on", "off")):
+            runs[name].append(run_gpt_engine(model, params, prompts,
+                                             name == "on"))
+    launches = {f.__name__: f.launches for f in wrappers}
+    print(f"[gpt serving] hand-written kernel launches of the "
+          f"{2 * GPT_SERVING_PAIRS} timed engine runs: {launches}")
+    check(not any(launches.values()),
+          "the GPT serving path launched a hand-written kernel: its paged "
+          "prefill, extend and decode are plain PyTorch, as in the JAX "
+          "package")
+    controls = {name: run_gpt_engine(model, params, prompts, True,
+                                     fault=name)
+                for name in GPT_SERVING_CONTROLS}
+
+    # the reference: the dense flash forward of each prompt (a check, so
+    # its launches are asserted here and not counted as the path's)
+    dense = []
+    for p in prompts:
+        padded = torch.zeros((1, 128), dtype=torch.long,
+                             device=params["wte"].device)
+        padded[0, :len(p)] = torch.tensor(p)
+        before = flash_attention_fwd.launches
+        dense.append(model.apply(params, padded)[0, len(p) - 1].float().cpu())
+        check(flash_attention_fwd.launches - before == c.n_layer,
+              "the dense comparison forward did not run the flash kernel")
+    checked = {f"{name} {i}": r for name in ("off", "on")
+               for i, r in enumerate(runs[name])}
+    checked.update(controls)
+    errs = {name: [logits_errors(f[0], d) for f, d in zip(r["first"], dense)]
+            for name, r in checked.items()}
+    # beside it, printed: against the cache-off engine's paged prefill,
+    # the same attention arithmetic over the whole prompt
+    off0 = runs["off"][0]
+    errs_off = {name: [logits_errors(f[0], g[0]) for f, g in
+                       zip(r["first"], off0["first"])]
+                for name, r in checked.items() if name != "off 0"}
+    for name in ("off 0", "on 0", *GPT_SERVING_CONTROLS):
+        hows = [f"{how}@{cached}" for _, how, cached in checked[name]["first"]]
+        print(f"[gpt serving] {name}: first-token logits vs dense flash "
+              f"forward, per request (computed by@cached tokens): "
+              + ", ".join(f"{h} max abs {e['max_abs']:.4f} rms "
+                          f"{e['rms_over_std']:.4f}"
+                          for h, e in zip(hows, errs[name])))
+        if name in errs_off:
+            print(f"[gpt serving] {name}: the same vs the cache-off paged "
+                  f"prefill: " + ", ".join(
+                      f"max abs {e['max_abs']:.4f} rms "
+                      f"{e['rms_over_std']:.4f}" for e in errs_off[name]))
+
+    # cache-on against cache-off streams, pair by pair, up to a near-tie
+    # of cache-off
+    agree, diverged = [], []
+    for pair, (off, on) in enumerate(zip(runs["off"], runs["on"])):
+        agree.append(sum(a == b for a, b in zip(off["tokens"],
+                                                on["tokens"])))
+        for i, (a, b) in enumerate(zip(off["tokens"], on["tokens"])):
+            if a == b:
+                continue
+            d = next(k for k in range(len(a)) if a[k] != b[k])
+            tie = next((k for k, m in enumerate(off["margins"][i])
+                        if m < TOL_GPT_LOGITS), len(a))
+            diverged.append(dict(pair=pair, request=i, step=d,
+                                 margin=off["margins"][i][d],
+                                 first_near_tie=tie))
+    print(f"[gpt serving] cache-on and cache-off streams agree in full for "
+          f"{agree} of {len(prompts)} requests in each pair; diverged: "
+          f"{diverged} (near-tie limit {TOL_GPT_LOGITS})")
+
+    def stat(run):
+        tt = run["ttft_s"]
+        return dict(ttft_p50_s=statistics.median(tt), ttft_max_s=max(tt),
+                    decode_step_p50_s=statistics.median(run["decode_s"]),
+                    decode_steps=len(run["decode_s"]),
+                    tokens_per_s=len(prompts) * MAX_TOKENS / run["wall_s"],
+                    wall_s=run["wall_s"], cache_stats=run["cache_stats"],
+                    copies=run["copies"])
+
+    out = {"per_run": {name: [stat(r) for r in rs]
+                       for name, rs in runs.items()}}
+    for name, sts in out["per_run"].items():
+        med = {k: statistics.median(st[k] for st in sts)
+               for k in ("ttft_p50_s", "ttft_max_s", "decode_step_p50_s",
+                         "tokens_per_s")}
+        out[name] = dict(med, cache_stats=sts[0]["cache_stats"],
+                         copies=sts[0]["copies"])
+        print(f"[gpt serving] prefix cache {name}: {len(prompts)} requests x "
+              f"{MAX_TOKENS} tokens, prompts "
+              f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
+              f"{len(sts)} runs (after one untimed run each way; order "
+              f"alternating): TTFT p50 "
+              f"{[round(st['ttft_p50_s'] * 1e3, 2) for st in sts]} ms "
+              f"(median {med['ttft_p50_s'] * 1e3:.2f}); TTFT max "
+              f"{[round(st['ttft_max_s'] * 1e3, 2) for st in sts]} ms; "
+              f"decode step p50 "
+              f"{[round(st['decode_step_p50_s'] * 1e3, 2) for st in sts]} "
+              f"ms over {sts[0]['decode_steps']} steps; end to end "
+              f"{[round(st['tokens_per_s'], 1) for st in sts]} tokens/s; "
+              f"{sts[0]['copies']} block copies; cache "
+              f"{sts[0]['cache_stats']}")
+    out["launches"] = launches
+
+    def worst(es):
+        return dict(max_abs=max(e["max_abs"] for e in es),
+                    rms_over_std=max(e["rms_over_std"] for e in es))
+
+    out["first_logits_err"] = {name: worst(es) for name, es in errs.items()}
+    out["first_logits_err_vs_off"] = {name: worst(es)
+                                      for name, es in errs_off.items()}
+    out["streams_agree"] = agree
+    out["diverged"] = diverged
+    out["decode_split"] = decode_split("GPT-2 small", model, params)
+
+    for name in checked:
+        if name in GPT_SERVING_CONTROLS:
+            check(not all(map(gpt_logits_agree, errs[name])),
+                  f"control '{name}' passes the first-token logits check")
+        else:
+            check(all(map(gpt_logits_agree, errs[name])),
+                  f"cache {name}: first-token logits disagree with the "
+                  f"dense flash forward")
+    for on in runs["on"]:
+        check(on["cache_stats"]["prefix_hit_tokens"] > 0,
+              "the cache never hit")
+        check(on["copies"] >= 1, "the cache never copied a block on write")
+    for dv in diverged:
+        check(dv["first_near_tie"] <= dv["step"],
+              f"pair {dv['pair']} request {dv['request']} diverged at step "
+              f"{dv['step']} with cache-off margins all >= {TOL_GPT_LOGITS} "
+              f"up to it")
+    return out
+
 
 def main() -> int:
     import torch
@@ -1503,6 +1925,8 @@ def main() -> int:
                   "the serving path never launched flash_fwd")
             check(not any(f.launches for f in wrappers[1:]),
                   "the serving path launched a training kernel")
+            serving["decode_split"] = decode_split(
+                "Llama-2-7B", server.engine.model, server.engine.params)
         server = None
         serving_peak_gib = torch.cuda.max_memory_allocated() / 2**30
         gc.collect()
@@ -1523,6 +1947,10 @@ def main() -> int:
         for path in (training, training_fused):
             for name, n in path["launches"].items():
                 check(n > 0, f"a training path never launched {name}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            gpt_serving = phase_gpt_serving(wrappers)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1535,7 +1963,9 @@ def main() -> int:
           f"the fused training steps")
     fwd_launches = dict(serving=serving_launches,
                         training=training["launches"]["flash_fwd"],
-                        training_fused=training_fused["launches"]["flash_fwd"])
+                        training_fused=training_fused["launches"]["flash_fwd"],
+                        gpt_serving=gpt_serving["launches"][
+                            flash_attention_fwd.__name__])
     bwd_launches = dict(training=training["launches"]["flash_bwd"],
                         training_fused=training_fused["launches"]["flash_bwd"])
 
@@ -1598,7 +2028,7 @@ def main() -> int:
             "by_shape": rows,
         })
     summary = {"forward": forward, "serving": serving, "training": training,
-               "training_fused": training_fused,
+               "training_fused": training_fused, "gpt_serving": gpt_serving,
                "fused_backward_products": fused_bwd, "lm_head": lm_head}
     print(f"[summary] {json.dumps(summary)}")
     print(card)

@@ -1,10 +1,13 @@
-"""GPT-2 family (counterpart of ray_tpu/models/gpt.py): the training path.
+"""GPT-2 family (counterpart of ray_tpu/models/gpt.py): training and the
+paged serving path.
 
 Functional like the JAX model: ``init`` returns a dict of tensors with the
 JAX package's names, shapes and stacked ``[L, ...]`` layout (f32, the
 vocabulary padded to a multiple of 128), and ``apply`` / ``loss`` /
 ``loss_chunked`` take that dict, so ``torch.autograd`` differentiates them
-with respect to it. Matmul weights are cast to ``config.dtype`` at each
+with respect to it. ``paged_prefill`` / ``paged_prefill_extend`` /
+``paged_decode_step`` serve from a block-pool KV cache
+(``init_paged_cache``), which they write in place and return. Matmul weights are cast to ``config.dtype`` at each
 use, as in the JAX model. Attention goes through ``flash_attention`` (the
 CUDA forward and backward kernels on the card) or, with
 ``use_flash=False``, through ``mha_reference``. With
@@ -15,9 +18,8 @@ FC, MLP out + residual) through ``matmul_residual`` and ``ln_matmul``
 
 Not here until a slice reads them: the XLA compile knobs ``remat`` and
 ``scan_layers``, ``flash_block_q/k`` (the CUDA kernels choose their own
-tiles), ``seq_axis`` (ring attention), the paged serving methods (and
-with them the ``positions`` argument of ``apply``), ``loss_pp``, the
-pipeline-stage slicing and the sharding tables.
+tiles), ``seq_axis`` (ring attention), ``loss_pp``, the pipeline-stage
+slicing and the sharding tables.
 """
 from __future__ import annotations
 
@@ -30,7 +32,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import (cross_entropy_loss, flash_attention, gelu, layernorm,
-                   ln_matmul, matmul_residual, mha_reference)
+                   ln_matmul, matmul_residual, mha_reference,
+                   paged_attention_decode, paged_attention_prefill,
+                   paged_write_prefill, paged_write_step)
 
 Params = Dict[str, torch.Tensor]
 
@@ -253,12 +257,14 @@ class GPT:
         return x + out
 
     def _embed(self, wte: torch.Tensor, wpe: torch.Tensor,
-               tokens: torch.Tensor) -> torch.Tensor:
+               tokens: torch.Tensor,
+               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Token + position embedding in the compute dtype (gather, then
-        cast: the same values as casting the tables first)."""
+        cast: the same values as casting the tables first). ``positions``
+        [B, S] (or [1, S]) index ``wpe``; None means 0..S-1."""
         dtype = self.config.dtype
-        return F.embedding(tokens, wte).to(dtype) \
-            + wpe[: tokens.shape[1]].to(dtype)
+        pos = wpe[: tokens.shape[1]] if positions is None else wpe[positions]
+        return F.embedding(tokens, wte).to(dtype) + pos.to(dtype)
 
     def _lm_head(self, head_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """Tied LM head: the compute-dtype operands, the product accumulated
@@ -268,14 +274,15 @@ class GPT:
         return logits.reshape(*x.shape[:-1], w.shape[0])
 
     def _backbone(self, params: Params, tokens: torch.Tensor,
-                  generator: Optional[torch.Generator] = None
+                  generator: Optional[torch.Generator] = None,
+                  positions: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
         """Transformer stack up to the final layernorm ([B, S, D], no
         head). With dropout > 0 and a generator, GPT-2's dropout applies
         to the embeddings and to each residual branch, drawn in order from
         ``generator``."""
         c = self.config
-        x = self._embed(params["wte"], params["wpe"], tokens)
+        x = self._embed(params["wte"], params["wpe"], tokens, positions)
         if c.dropout > 0.0 and generator is not None:
             x = self._dropout(x, generator)
         # one unbind per stacked parameter: its backward stacks the
@@ -288,9 +295,12 @@ class GPT:
         return layernorm(x, params["lnf_g"], params["lnf_b"])
 
     def apply(self, params: Params, tokens: torch.Tensor,
+              positions: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """tokens [B, S] -> logits [B, S, padded_vocab] (f32)."""
-        x = self._backbone(params, tokens, generator)
+        """tokens [B, S] -> logits [B, S, padded_vocab] (f32). ``positions``
+        [B, S] (or [1, S]) are the tokens' sequence positions (0..S-1 when
+        None)."""
+        x = self._backbone(params, tokens, generator, positions)
         return self._lm_head(params["wte"], x)
 
     def loss(self, params: Params, tokens: torch.Tensor,
@@ -332,3 +342,113 @@ class GPT:
         lse = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, tc[:, None])[:, 0]
         return (lse - gold).sum()
+
+    # ---- paged-KV serving path (ray_tpu_torch.serve.llm) ------------------
+
+    def init_paged_cache(self, num_blocks: int, block_size: int,
+                         device: torch.device) -> Params:
+        """Block-pool KV cache shared by every resident sequence:
+        k/v [L, num_blocks, block_size, H, hd] (GPT has no GQA: KH = H)."""
+        c = self.config
+        shape = (c.n_layer, num_blocks, block_size, c.n_head, c.head_dim)
+        return {"k": torch.zeros(shape, dtype=c.dtype, device=device),
+                "v": torch.zeros(shape, dtype=c.dtype, device=device)}
+
+    def _paged_layer_params(self, params: Params, li: int) -> Params:
+        return {n: params[n][li] for n in self.LAYER_PARAMS}
+
+    def _paged_qkv(self, x: torch.Tensor, lp: Params):
+        """LN1 and the QKV projection: q, k, v [..., H, hd]."""
+        c = self.config
+        h = layernorm(x, lp["ln1_g"], lp["ln1_b"])
+        qkv = self._mm(h, lp["w_qkv"]) + lp["b_qkv"].to(c.dtype)
+        return (t.reshape(*x.shape[:-1], c.n_head, c.head_dim)
+                for t in qkv.split(c.d_model, dim=-1))
+
+    def _paged_proj(self, x: torch.Tensor, attn: torch.Tensor,
+                    lp: Params) -> torch.Tensor:
+        """The attention projection's residual, then the MLP's."""
+        c = self.config
+        x = x + self._mm(attn.reshape(x.shape), lp["w_proj"]) \
+            + lp["b_proj"].to(c.dtype)
+        return self._paged_mlp(x, lp)
+
+    def _paged_mlp(self, x: torch.Tensor, lp: Params) -> torch.Tensor:
+        c = self.config
+        h = layernorm(x, lp["ln2_g"], lp["ln2_b"])
+        h = gelu(self._mm(h, lp["w_fc"]) + lp["b_fc"].to(c.dtype))
+        return x + self._mm(h, lp["w_out"]) + lp["b_out"].to(c.dtype)
+
+    def _paged_logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Final layernorm and the tied head as an f32 product with wte."""
+        x = layernorm(x, params["lnf_g"], params["lnf_b"])
+        return x.float() @ params["wte"].float().T
+
+    def paged_prefill(self, params: Params, cache: Params,
+                      tokens: torch.Tensor, length: int,
+                      block_row: torch.Tensor):
+        """Prompt pass at a bucket shape: tokens [1, S] (positions >=
+        length are padding), block_row [M] -> (last-token logits [V] f32,
+        cache written in place)."""
+        c = self.config
+        x = self._embed(params["wte"], params["wpe"], tokens)   # [1, S, D]
+        for li in range(c.n_layer):
+            lp = self._paged_layer_params(params, li)
+            q, k, v = self._paged_qkv(x, lp)                    # [1, S, H, hd]
+            attn = mha_reference(q, k, v, causal=True)
+            paged_write_prefill(cache["k"][li], block_row, k[0], length)
+            paged_write_prefill(cache["v"][li], block_row, v[0], length)
+            x = self._paged_proj(x, attn, lp)
+        last = x[0, max(int(length) - 1, 0)]
+        return self._paged_logits(params, last), cache
+
+    def paged_prefill_extend(self, params: Params, cache: Params,
+                             tokens: torch.Tensor, start: int, length: int,
+                             block_row: torch.Tensor):
+        """Suffix prefill over a cached prefix: positions [0, start)
+        already sit in the blocks of ``block_row``; only the suffix
+        ``tokens`` [1, S] (padded to the bucket, true length ``length``)
+        is embedded at positions start.., written there, and attended
+        causally over the full paged context. Returns (last-token logits
+        [V] f32, cache written in place), as ``paged_prefill`` would for
+        the whole prompt. Pad positions past max_seq embed its last row,
+        as the JAX gather clamps them; their rows are dropped."""
+        c = self.config
+        S = tokens.shape[1]
+        positions = (start + torch.arange(S, device=tokens.device)).clamp(
+            max=c.max_seq - 1)[None]                             # [1, S]
+        x = self._embed(params["wte"], params["wpe"], tokens, positions)
+        for li in range(c.n_layer):
+            lp = self._paged_layer_params(params, li)
+            q, k, v = self._paged_qkv(x, lp)
+            kl = paged_write_prefill(cache["k"][li], block_row, k[0], length,
+                                     start)
+            vl = paged_write_prefill(cache["v"][li], block_row, v[0], length,
+                                     start)
+            attn = paged_attention_prefill(q[0], kl, vl, block_row, start,
+                                           length)
+            x = self._paged_proj(x, attn, lp)
+        last = x[0, max(int(length) - 1, 0)]
+        return self._paged_logits(params, last), cache
+
+    def paged_decode_step(self, params: Params, cache: Params,
+                          tokens: torch.Tensor, positions: torch.Tensor,
+                          block_rows: torch.Tensor, active: torch.Tensor):
+        """One continuous-batching iteration at a fixed batch: tokens [B],
+        positions [B] (the index each token is written at), block_rows
+        [B, M], active [B] bool (inactive slots write nothing) -> (logits
+        [B, V] f32, cache written in place)."""
+        c = self.config
+        x = self._embed(params["wte"], params["wpe"], tokens[:, None],
+                        positions[:, None])[:, 0]               # [B, D]
+        lengths = positions + 1          # attend over context incl. self
+        for li in range(c.n_layer):
+            lp = self._paged_layer_params(params, li)
+            q, k, v = self._paged_qkv(x, lp)                    # [B, H, hd]
+            kl = paged_write_step(cache["k"][li], block_rows, positions, k,
+                                  active)
+            vl = paged_write_step(cache["v"][li], block_rows, positions, v,
+                                  active)
+            attn = paged_attention_decode(q, kl, vl, block_rows, lengths)
+            x = self._paged_proj(x, attn, lp)
+        return self._paged_logits(params, x), cache

@@ -3,7 +3,8 @@ rmsnorm + rope + swiglu + grouped-query attention.
 
 Functional like the JAX model: ``init`` returns a dict of tensors with the
 JAX package's names, shapes and stacked ``[L, ...]`` layout (f32), and
-``apply`` / ``paged_prefill`` / ``paged_decode_step`` take that dict.
+``apply`` / ``loss`` / ``paged_prefill`` / ``paged_prefill_extend`` /
+``paged_decode_step`` / ``decode_step`` take that dict.
 Matmul weights are cast to ``config.dtype`` at each use, as in the JAX
 model; ``cast_matmul_weights`` stores that cast once (numerically the
 same, without re-casting 6.5 B parameters every step), which is what
@@ -19,8 +20,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops import (apply_rope, flash_attention, mha_reference,
-                   paged_attention_decode, paged_write_prefill,
+from ..ops import (apply_rope, cross_entropy_loss, flash_attention,
+                   mha_reference, paged_attention_decode,
+                   paged_attention_prefill, paged_write_prefill,
                    paged_write_step, rmsnorm, rope_cache)
 
 Params = Dict[str, torch.Tensor]
@@ -118,6 +120,16 @@ class Llama:
     def num_params(self) -> int:
         return sum(math.prod(s) for s in self.param_shapes().values())
 
+    def flops_per_token(self, seq: Optional[int] = None) -> int:
+        """Forward+backward matmul FLOPs per token: 6N plus attention at
+        the full head count (GQA broadcasts k/v before QK^T and PV),
+        6 * L * S * H * hd, already halved by the causal mask. The same
+        formula as the JAX model's."""
+        c = self.config
+        s = c.max_seq if seq is None else seq
+        return 6 * self.num_params() + \
+            6 * c.n_layer * c.n_head * c.head_dim * s
+
     # ---- dense forward ---------------------------------------------------
 
     def _mm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -189,6 +201,10 @@ class Llama:
             x = self._block(x, self._layer(params, li), cos, sin, positions)
         return self._head(x, params)
 
+    def loss(self, params: Params, tokens: torch.Tensor,
+             targets: torch.Tensor) -> torch.Tensor:
+        return cross_entropy_loss(self.apply(params, tokens), targets)
+
     # ---- paged-KV serving path (ray_tpu_torch.serve.llm) ------------------
 
     def init_paged_cache(self, num_blocks: int, block_size: int,
@@ -225,6 +241,39 @@ class Llama:
         last = x[0, max(int(length) - 1, 0)]
         return self._head(last, params), cache
 
+    def paged_prefill_extend(self, params: Params, cache: Params,
+                             tokens: torch.Tensor, start: int, length: int,
+                             block_row: torch.Tensor):
+        """Suffix prefill over a cached prefix (the contract of
+        GPT.paged_prefill_extend): tokens [1, S] are the suffix only,
+        RoPE'd at absolute positions start.., written into ``block_row``
+        at start.. and attended over the full paged context, the reused
+        [0, start) KV included. Pad positions past max_seq take its last
+        rotation, as the JAX gather clamps them; their rows are dropped."""
+        c = self.config
+        S = tokens.shape[1]
+        x = self._embed(params, tokens)                       # [1, S, D]
+        cos, sin = rope_cache(c.max_seq, c.head_dim, c.rope_base,
+                              device=x.device)
+        positions = (start + torch.arange(S, device=x.device)).clamp(
+            max=c.max_seq - 1)[None]                           # [1, S]
+        for li in range(c.n_layer):
+            lp = self._layer(params, li)
+            q, k, v = self._qkv(x, lp)
+            q = apply_rope(q, cos, sin, positions)
+            k = apply_rope(k, cos, sin, positions)
+            kl = paged_write_prefill(cache["k"][li], block_row, k[0], length,
+                                     start)
+            vl = paged_write_prefill(cache["v"][li], block_row, v[0], length,
+                                     start)
+            attn = paged_attention_prefill(q[0], kl, vl, block_row, start,
+                                           length)
+            x = x + self._mm(attn.reshape(1, S, c.n_head * c.head_dim),
+                             lp["w_o"])
+            x = self._mlp(x, lp)
+        last = x[0, max(int(length) - 1, 0)]
+        return self._head(last, params), cache
+
     def paged_decode_step(self, params: Params, cache: Params,
                           tokens: torch.Tensor, positions: torch.Tensor,
                           block_rows: torch.Tensor, active: torch.Tensor):
@@ -252,3 +301,53 @@ class Llama:
                              lp["w_o"])
             x = self._mlp(x, lp)
         return self._head(x, params), cache
+
+    # ---- dense-cache decode path --------------------------------------------
+
+    def init_cache(self, batch: int, device: torch.device) -> Params:
+        """Dense KV cache: k/v [L, batch, max_seq, KH, hd] and the next
+        write position of each row, pos [batch]."""
+        c = self.config
+        shape = (c.n_layer, batch, c.max_seq, c.n_kv_head, c.head_dim)
+        return {"k": torch.zeros(shape, dtype=c.dtype, device=device),
+                "v": torch.zeros(shape, dtype=c.dtype, device=device),
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)}
+
+    def decode_step(self, params: Params, cache: Params,
+                    tokens: torch.Tensor):
+        """One autoregressive step: tokens [B, 1] -> (logits [B, V] f32,
+        a new cache). Each row's K/V lands at its own position by a
+        one-hot blend, and attention is masked to positions <= pos, as in
+        the JAX model."""
+        c = self.config
+        B = tokens.shape[0]
+        H, hd = c.n_head, c.head_dim
+        pos = cache["pos"].long()                              # [B]
+        x = self._embed(params, tokens)                        # [B, 1, D]
+        cos, sin = rope_cache(c.max_seq, hd, c.rope_base, device=x.device)
+        onehot = F.one_hot(pos, c.max_seq).to(c.dtype)[:, :, None, None]
+        mask = torch.arange(c.max_seq, device=x.device)[None, :] \
+            <= pos[:, None]                                    # [B, S]
+        new_k, new_v = [], []
+        for li in range(c.n_layer):
+            lp = self._layer(params, li)
+            q, k, v = self._qkv(x, lp)                         # [B, 1, H, hd]
+            q = apply_rope(q, cos, sin, pos[:, None])
+            k = apply_rope(k, cos, sin, pos[:, None])
+            ck = cache["k"][li] * (1 - onehot) + onehot * k
+            cv = cache["v"][li] * (1 - onehot) + onehot * v
+            new_k.append(ck)
+            new_v.append(cv)
+            kk, vv = self._repeat_kv(ck, cv)
+            scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                                  kk.float()) / math.sqrt(hd)
+            scores = scores.masked_fill(~mask[:, None, None, :], -1e30)
+            probs = torch.softmax(scores, dim=-1)
+            attn = torch.einsum("bhqk,bkhd->bqhd", probs,
+                                vv.float()).to(c.dtype)
+            x = x + self._mm(attn.reshape(B, 1, H * hd), lp["w_o"])
+            x = self._mlp(x, lp)
+        logits = self._head(x, params)[:, 0]
+        return logits, {"k": torch.stack(new_k), "v": torch.stack(new_v),
+                        "pos": cache["pos"] + 1}

@@ -7,10 +7,11 @@ compositions, so plain PyTorch gather/scatter is their counterpart here.
 
 The writes update the cache IN PLACE (JAX returns a new array; here a
 copy of the whole pool per step would double its memory traffic) and
-return it. Inactive slots and pad positions are dropped — their indices
-are filtered out, never clamped — so they cannot overwrite blocks owned
-by live sequences, as JAX's ``mode="drop"`` scatter guarantees. All
-attention math is f32.
+return it. Inactive slots, pad positions and block id -1 are dropped, so
+they cannot overwrite blocks owned by live sequences, as JAX's
+``mode="drop"`` scatter guarantees. The write never reads a kept-row
+count on the host, so it does not wait for the device. All attention
+math is f32.
 """
 from __future__ import annotations
 
@@ -39,8 +40,21 @@ def paged_gather_kv(cache: torch.Tensor,
 def _scatter_kept(cache: torch.Tensor, bids: torch.Tensor,
                   offs: torch.Tensor, new: torch.Tensor,
                   keep: torch.Tensor) -> torch.Tensor:
-    keep = keep & (bids >= 0) & (bids < cache.shape[0])
-    cache[bids[keep], offs[keep]] = new[keep].to(cache.dtype)
+    """cache[bids, offs] = new where ``keep`` (and the block id is in
+    range), with every row written: a dropped row repeats the first kept
+    row's index and value, or, when no row is kept, writes back what that
+    index already holds. Duplicate indices so carry one value."""
+    n, bs = cache.shape[:2]
+    keep = keep & (bids >= 0) & (bids < n)
+    flat = cache.view(n * bs, *cache.shape[2:])
+    idx = bids.clamp(0, n - 1) * bs + offs
+    val = new.to(cache.dtype)
+    first = keep.to(torch.int32).argmax()     # 0 when nothing is kept
+    dup_idx = idx[first]
+    dup_val = torch.where(keep[first], val[first], flat[dup_idx])
+    idx = torch.where(keep, idx, dup_idx)
+    val = torch.where(keep.view(-1, *([1] * (val.dim() - 1))), val, dup_val)
+    flat.index_copy_(0, idx, val)
     return cache
 
 

@@ -4,7 +4,8 @@ plane (controller, handles, proxies) is not ported yet.
 
     from ray_tpu_torch.serve.llm import LLMServer
 
-    server = LLMServer("llama2-7b", engine_config={"max_batch": 8})
+    server = LLMServer("gpt2-small", engine_config={"max_batch": 8,
+                                                   "prefix_cache": True})
     out = server({"tokens": [1, 5, 9], "max_tokens": 16})
     for tok in server({"tokens": [1, 5, 9], "max_tokens": 16,
                        "stream": True}): ...
@@ -20,38 +21,57 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..._device import DeviceLike, resolve_device
-from ...models import Llama, LlamaConfig
+from ...models import GPT, GPTConfig, Llama, LlamaConfig
 from .engine import EngineConfig, LLMEngine
 
-# registry name -> (LlamaConfig preset, config overrides)
+# registry name -> (family, config preset, config overrides)
+_TINY = dict(dtype=torch.float32, use_flash=False)
 _REGISTRY = {
-    "llama-tiny": ("tiny", dict(dtype=torch.float32, use_flash=False)),
-    "llama2-7b": ("llama2_7b", {}),
+    "gpt-tiny": ("gpt", "tiny", _TINY),
+    "llama-tiny": ("llama", "tiny", _TINY),
+    "gpt2-small": ("gpt", "small", {}),
+    "llama2-7b": ("llama", "llama2_7b", {}),
 }
+_FAMILIES = {"gpt": (GPT, GPTConfig), "llama": (Llama, LlamaConfig)}
 
 
-def build_model(model: str = "llama-tiny", seed: int = 0,
-                device: DeviceLike = None) -> Tuple[Llama, Dict]:
-    """-> (model, params) on ``device`` (None = the CUDA card) for a
-    registry name ("llama-tiny", "llama2-7b"). Params initialize from
-    `seed` with a torch.Generator on the device; the matmul weights are
-    stored in the config's compute dtype (Llama.cast_matmul_weights)."""
+def build_model(model: Any = "llama-tiny", seed: int = 0,
+                device: DeviceLike = None) -> Tuple[Any, Dict]:
+    """-> (model, params) on ``device`` (None = the CUDA card). ``model``
+    is a registry name ("gpt-tiny", "llama-tiny", "gpt2-small",
+    "llama2-7b"), or a dict {"family": "gpt"|"llama", "preset": ...,
+    **config_kwargs} for explicit sizing (preset "tiny" when absent).
+    Params initialize from ``seed`` with a torch.Generator on the device.
+    GPT keeps its params in f32 and casts per product, as the JAX model
+    does; Llama stores its matmul weights in the compute dtype
+    (Llama.cast_matmul_weights)."""
     dev = resolve_device(device)
-    if model not in _REGISTRY:
-        raise ValueError(f"unknown model {model!r}; "
-                         f"known: {sorted(_REGISTRY)}")
-    preset, kw = _REGISTRY[model]
-    m = Llama(getattr(LlamaConfig, preset)(**kw))
+    if isinstance(model, str):
+        if model not in _REGISTRY:
+            raise ValueError(f"unknown model {model!r}; "
+                             f"known: {sorted(_REGISTRY)}")
+        family, preset, kw = _REGISTRY[model]
+    else:
+        kw = dict(model)
+        family = kw.pop("family")
+        preset = kw.pop("preset", "tiny")
+    if family not in _FAMILIES:
+        raise ValueError(f"unknown model family {family!r}")
+    cls, config_cls = _FAMILIES[family]
+    m = cls(getattr(config_cls, preset)(**kw))
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return m, m.cast_matmul_weights(m.init(gen))
+    params = m.init(gen)
+    if family == "llama":
+        params = m.cast_matmul_weights(params)
+    return m, params
 
 
 class LLMServer:
     """Callable wrapping an LLMEngine whose scheduler runs on a background
     thread from construction until ``shutdown()``."""
 
-    def __init__(self, model: str = "llama-tiny",
+    def __init__(self, model: Any = "llama-tiny",
                  engine_config: Optional[Dict[str, Any]] = None,
                  seed: int = 0, name: str = "",
                  device: DeviceLike = None):

@@ -11,6 +11,14 @@ queue when the pool cannot grow a running one — greedy decode makes the
 requeued continuation produce exactly the tokens the unpreempted run
 would have.
 
+With ``EngineConfig(prefix_cache=True)`` retired and preempted sequences
+leave the full-block KV of their prompt and completion indexed in a radix
+tree (prefix_cache.py); a new request reuses the longest cached prefix
+(refcounted block sharing, a copy-on-write of the block where it diverges
+mid-block) and prefills only its suffix (``model.paged_prefill_extend``).
+Cached blocks are LRU-evicted under pool pressure. Greedy decode keeps the
+tokens identical to the cache-off engine's.
+
 PyTorch runs the model's programs eagerly; prompts are still padded to
 the next ``prefill_buckets`` entry and decode always runs ``max_batch``
 slots, because those shapes are part of what the JAX engine computes.
@@ -21,9 +29,8 @@ slots, because those shapes are part of what the JAX engine computes.
     for tok in stream: ...               # sync; `async for` also works
 
 Not ported yet (each raises or is absent): tensor parallelism (``tp``),
-the radix prefix cache (``prefix_cache``), disaggregated intake
-(``add_prefilled``), metrics, tracing, the flight recorder and
-``profile()``.
+disaggregated intake (``add_prefilled``), metrics, tracing, the flight
+recorder and ``profile()``.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ import numpy as np
 import torch
 
 from .kv_cache import BlockPool, blocks_for_tokens
+from .prefix_cache import PrefixCache
 
 
 @dataclass
@@ -56,7 +64,10 @@ class EngineConfig:
     prefill_buckets: Tuple[int, ...] = (16, 32, 64, 128, 256)
     eos_id: Optional[int] = None       # engine-wide default EOS
     idle_sleep_s: float = 0.002        # background-loop sleep when idle
-    prefix_cache: bool = False         # only False is ported
+    # radix prefix cache (prefix_cache.py): a new request reuses the
+    # longest cached prefix of retired/preempted/running sequences and
+    # prefills only its suffix; LRU-evicted under pool pressure
+    prefix_cache: bool = False
 
     @property
     def max_context(self) -> int:
@@ -150,12 +161,14 @@ class Request:
     generated: List[int] = field(default_factory=list)
     first_token_at: Optional[float] = None
     preemptions: int = 0
+    cache_hit_tokens: int = 0          # prompt tokens served from cache
+    cache_miss_tokens: int = 0         # prompt tokens that were prefilled
 
 
 class _Sequence:
     """A running request's batch-slot state."""
 
-    __slots__ = ("req", "slot", "blocks", "seq_len", "pending")
+    __slots__ = ("req", "slot", "blocks", "seq_len", "pending", "tokens")
 
     def __init__(self, req: Request, slot: int, blocks: List[int],
                  seq_len: int, pending: int):
@@ -164,6 +177,19 @@ class _Sequence:
         self.blocks = blocks           # pool block ids, table order
         self.seq_len = seq_len         # tokens whose KV is in cache
         self.pending = pending         # emitted token awaiting its KV write
+        # the token identity of the resident KV, position by position —
+        # what the prefix cache indexes
+        self.tokens: List[int] = list(req.prompt)
+
+
+def _copy_block(cache: Dict[str, torch.Tensor], src: int,
+                dst: int) -> Dict[str, torch.Tensor]:
+    """Copy-on-write: duplicate pool block ``src`` into ``dst`` in every
+    layer of k and v (the block axis is axis 1 of [L, N, Bs, KH, hd]),
+    in place."""
+    for t in cache.values():
+        t[:, dst].copy_(t[:, src])
+    return cache
 
 
 class LLMEngine:
@@ -180,8 +206,6 @@ class LLMEngine:
         if cfg.tp != 1:
             raise NotImplementedError("tensor-parallel serving (tp > 1) is "
                                       "not ported yet")
-        if cfg.prefix_cache:
-            raise NotImplementedError("the prefix cache is not ported yet")
         buckets = tuple(sorted(set(
             min(b, cfg.max_context, model.config.max_seq)
             for b in cfg.prefill_buckets)))
@@ -201,7 +225,9 @@ class LLMEngine:
                                              self.device)
         # the model's programs, as attributes so a caller can observe them
         self._prefill_fn = model.paged_prefill
+        self._extend_fn = model.paged_prefill_extend
         self._decode_fn = model.paged_decode_step
+        self._cow_fn = _copy_block
         self._lock = threading.RLock()
         self._waiting: "collections.deque[Request]" = collections.deque()
         self._running: List[_Sequence] = []
@@ -212,6 +238,11 @@ class LLMEngine:
         self._total_preemptions = 0
         self._peak_blocks = 0
         self._tok_events: "collections.deque" = collections.deque()
+        self.prefix_cache: Optional[PrefixCache] = None
+        self._prefix_hits = 0          # tokens served from cached KV
+        self._prefix_misses = 0        # tokens that paid prefill compute
+        if cfg.prefix_cache:
+            self.prefix_cache = PrefixCache(self.pool, cfg.block_size)
 
     # -- request intake -------------------------------------------------------
 
@@ -252,6 +283,19 @@ class LLMEngine:
             self._peak_blocks = max(self._peak_blocks, self.pool.used_count)
             return admitted or decoded
 
+    def _alloc_with_evict(self, n: int) -> Optional[List[int]]:
+        """Pool alloc that spends cached prefixes under pressure: when
+        the free list can't cover ``n``, LRU-evict refcount-1 cache
+        nodes until it can (cache residency is a best-effort use of idle
+        blocks, never a reason to preempt live work)."""
+        blocks = self.pool.alloc(n)
+        if blocks is None and self.prefix_cache is not None:
+            short = n - self.pool.free_count
+            if short > 0:
+                self.prefix_cache.evict(short)
+            blocks = self.pool.alloc(n)
+        return blocks
+
     def _admit(self) -> bool:
         cfg = self.config
         budget = cfg.max_prefill_tokens_per_step
@@ -266,22 +310,52 @@ class LLMEngine:
                     f"{req.request_id}: context {p} exceeds engine "
                     f"capacity {self.max_prompt}"))
                 continue
-            if admitted and p > budget:
+            # longest cached prefix (at most p-1: the last prompt token
+            # always prefills so its logits pick the first new token)
+            match = None
+            cached = 0
+            if self.prefix_cache is not None:
+                match = self.prefix_cache.match(req.prompt[:-1])
+                cached = match.num_tokens + match.partial_len
+            if admitted and p - cached > budget:
                 break                     # token budget for this iteration
             nb = blocks_for_tokens(p, cfg.block_size)
-            blocks = self.pool.alloc(nb)
+            reused = list(match.blocks) if match else []
+            # pin the matched blocks (and the COW source) before any
+            # eviction the alloc below may trigger can free them; the
+            # pin rides match.blocks into the sequence's table and is
+            # freed at retire/preempt through seq.blocks
+            if reused:
+                self.pool.retain(reused)  # graftcheck: disable=GC030
+            if match is not None and match.partial_block is not None:
+                self.pool.retain([match.partial_block])
+            blocks = self._alloc_with_evict(nb - len(reused))
             if blocks is None:
+                if reused:
+                    self.pool.free(reused)
+                if match is not None and match.partial_block is not None:
+                    self.pool.free([match.partial_block])
                 if not self._running and nb > self.pool.num_blocks:
                     self._waiting.popleft()
                     req.stream._finish("error", RuntimeError(
                         f"{req.request_id}: prompt needs {nb} blocks; "
                         f"pool holds {self.pool.num_blocks}"))
                     continue
+                if not self._running and self.prefix_cache is not None \
+                        and self.prefix_cache.resident_blocks:
+                    # nothing running will ever free blocks, and partial
+                    # matches can pin nodes eviction must skip: drop the
+                    # whole cache and retry cold — progress beats warmth
+                    self.prefix_cache.clear()
+                    continue
                 break                     # wait for decode frees/preemption
             self._waiting.popleft()
-            budget -= p
+            budget -= p - cached
             admitted = True
-            self._prefill_into(req, blocks)
+            if cached:
+                self._prefill_cached(req, match, blocks)
+            else:
+                self._prefill_into(req, blocks)
         return admitted
 
     def _prefill_into(self, req: Request, blocks: List[int]) -> None:
@@ -297,16 +371,60 @@ class LLMEngine:
             torch.from_numpy(toks).to(self.device), p,
             torch.from_numpy(row).to(self.device))
         first = int(logits.argmax())
+        self._count_prefix(0, p)
+        req.cache_hit_tokens, req.cache_miss_tokens = 0, p
         self._start_sequence(req, blocks, p, first)
+
+    def _prefill_cached(self, req: Request, match, blocks: List[int]) -> None:
+        """Suffix-only prefill over a matched cached prefix: the
+        sequence's table is [reused full blocks | fresh blocks]; a
+        mid-block divergence first duplicates the partially-shared block
+        into the first fresh one (COW), then only prompt[cached:] runs
+        through the extend program."""
+        cfg = self.config
+        p = len(req.prompt)
+        cached = match.num_tokens + match.partial_len
+        table = list(match.blocks) + blocks
+        if match.partial_len:
+            # COW at the divergence point: blocks[0] becomes this
+            # sequence's private copy of the partially-shared block
+            self._cache = self._cow_fn(self._cache, match.partial_block,
+                                       blocks[0])
+            # the pin taken at match time was only for the copy
+            self.pool.free([match.partial_block])
+        suffix = req.prompt[cached:]
+        s = len(suffix)
+        bucket = next(b for b in self.buckets if b >= s)
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :s] = suffix
+        row = np.full((cfg.max_blocks_per_seq,), -1, np.int64)
+        row[:len(table)] = table
+        logits, self._cache = self._extend_fn(
+            self.params, self._cache,
+            torch.from_numpy(toks).to(self.device), cached, s,
+            torch.from_numpy(row).to(self.device))
+        first = int(logits.argmax())
+        self._count_prefix(cached, s)
+        req.cache_hit_tokens, req.cache_miss_tokens = cached, s
+        self._start_sequence(req, table, p, first)
 
     def _start_sequence(self, req: Request, blocks: List[int], p: int,
                         first: int) -> None:
         slot = self._free_slots.pop()
         seq = _Sequence(req, slot, blocks, p, first)
         self._running.append(seq)
+        if self.prefix_cache is not None:
+            # index the prompt's full blocks NOW so concurrent requests
+            # sharing the prefix hit before this sequence even retires
+            self.prefix_cache.insert(seq.tokens, seq.blocks)
         if req.first_token_at is None:
             req.first_token_at = time.perf_counter()
         self._emit(seq, first)
+
+    def _count_prefix(self, hit: int, miss: int) -> None:
+        if self.prefix_cache is not None:
+            self._prefix_hits += hit
+            self._prefix_misses += miss
 
     def _decode_iteration(self) -> bool:
         cfg = self.config
@@ -327,19 +445,43 @@ class LLMEngine:
                 self._retire(seq, "length")
                 continue
             grow = need - len(seq.blocks)
-            if grow > 0:
-                got = self.pool.alloc(grow)
+            # a shared block under the write position must be
+            # duplicated before this sequence extends it (COW): decode
+            # structurally writes only private tail blocks, but a
+            # refcount > 1 here — however it arose — would corrupt
+            # every other holder's context
+            wi = seq.seq_len // cfg.block_size
+            cow = (grow <= 0 and self.prefix_cache is not None
+                   and self.pool.refcount(seq.blocks[wi]) > 1)
+            if grow > 0 or cow:
+                got = self._alloc_with_evict(max(grow, 0) + int(cow))
                 if got is None:
                     victim = self._running[-1]
                     if victim is seq and len(self._running) == 1:
-                        # sole runner and the pool still can't grow it:
-                        # blocks are held outside this engine — fail loud
-                        self._retire(seq, "error", RuntimeError(
-                            f"{seq.req.request_id}: KV pool exhausted "
-                            f"with no preemptible sequence"))
-                        continue
-                    self._preempt(victim)
-                    continue              # retry (or skip the victim)
+                        if self.prefix_cache is not None and \
+                                self.prefix_cache.resident_blocks:
+                            # partially-shared nodes can pin blocks LRU
+                            # eviction must skip — drop the whole cache
+                            # before declaring the pool exhausted, and
+                            # recompute cow: clearing may have dropped
+                            # the only other reference on the write block
+                            self.prefix_cache.clear()
+                            cow = (grow <= 0 and self.pool.refcount(
+                                seq.blocks[wi]) > 1)
+                            got = self.pool.alloc(max(grow, 0) + int(cow))
+                        if got is None:
+                            # sole runner and the pool still can't grow
+                            # it: blocks are held outside this engine —
+                            # fail loud
+                            self._retire(seq, "error", RuntimeError(
+                                f"{seq.req.request_id}: KV pool exhausted "
+                                f"with no preemptible sequence"))
+                            continue
+                    else:
+                        self._preempt(victim)
+                        continue          # retry (or skip the victim)
+                if cow:
+                    self._cow_block(seq, wi, got.pop())
                 seq.blocks.extend(got)
             i += 1
         if not self._running:
@@ -363,6 +505,7 @@ class LLMEngine:
         emitted = 0
         for seq in list(self._running):
             seq.seq_len += 1              # pending's KV landed this step
+            seq.tokens.append(seq.pending)
             seq.pending = int(next_tok[seq.slot])
             self._emit(seq, seq.pending)
             emitted += 1
@@ -381,9 +524,22 @@ class LLMEngine:
         elif len(req.generated) >= req.max_tokens:
             self._retire(seq, "length")
 
+    def _cow_block(self, seq: _Sequence, wi: int, fresh: int) -> None:
+        """Copy-on-write: duplicate seq.blocks[wi] into ``fresh`` on the
+        device, swap the table entry, release this sequence's reference
+        on the shared original."""
+        self._cache = self._cow_fn(self._cache, seq.blocks[wi], fresh)
+        self.pool.free([seq.blocks[wi]])
+        seq.blocks[wi] = fresh
+
     def _retire(self, seq: _Sequence, reason: str,
                 error: Optional[BaseException] = None) -> None:
         self._running.remove(seq)
+        if self.prefix_cache is not None and error is None:
+            # leave the full-block KV of prompt+completion behind for
+            # followers; the cache takes its own references, so the free
+            # below releases only this sequence's claim
+            self.prefix_cache.insert(seq.tokens, seq.blocks)
         self.pool.free(seq.blocks)
         self._free_slots.append(seq.slot)
         seq.req.stream._finish(reason, error)
@@ -391,8 +547,12 @@ class LLMEngine:
     def _preempt(self, seq: _Sequence) -> None:
         """Free everything the sequence holds and requeue it at the front
         of the waiting queue with prompt = full context so far; greedy
-        re-prefill continues the exact token sequence."""
+        re-prefill continues the exact token sequence (and, with the
+        prefix cache on, mostly re-uses its own still-cached KV — the
+        private tail is the only real loss)."""
         self._running.remove(seq)
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(seq.tokens, seq.blocks)
         self.pool.free(seq.blocks)
         self._free_slots.append(seq.slot)
         req = seq.req
@@ -475,9 +635,26 @@ class LLMEngine:
         span = now - self._tok_events[0][0]
         return sum(n for _, n in self._tok_events) / max(span, 1e-6)
 
+    def cache_stats(self) -> Dict[str, Any]:
+        """Prefix-cache health: hit rate over prompt tokens, hit and miss
+        token counts, resident blocks, nodes and evictions. All zeros
+        with the cache disabled."""
+        with self._lock:
+            hit, miss = self._prefix_hits, self._prefix_misses
+            pc = self.prefix_cache
+            return {
+                "cache_hit_rate": round(hit / (hit + miss), 4)
+                if hit + miss else 0.0,
+                "prefix_hit_tokens": hit,
+                "prefix_miss_tokens": miss,
+                "prefix_blocks_resident": pc.resident_blocks if pc else 0,
+                "prefix_nodes": pc.num_nodes if pc else 0,
+                "prefix_evictions": pc.evictions if pc else 0,
+            }
+
     def stats(self) -> Dict[str, Any]:
         with self._lock:
-            return {
+            out = {
                 "engine": self.name,
                 "waiting": len(self._waiting),
                 "running": len(self._running),
@@ -492,3 +669,6 @@ class LLMEngine:
                 "tp": 1,
                 "kv_blocks_peak": self._peak_blocks,
             }
+            if self.prefix_cache is not None:
+                out.update(self.cache_stats())
+            return out

@@ -239,7 +239,7 @@ def test_requests_that_cannot_run_fail_loud(tiny, case):
     eng.pool.check_leaks()
 
 
-@pytest.mark.parametrize("over", [{"tp": 2}, {"prefix_cache": True}])
+@pytest.mark.parametrize("over", [{"tp": 2}])
 def test_unported_engine_options_raise(tiny, over):
     with pytest.raises(NotImplementedError):
         mk_engine(tiny, **over)
@@ -255,10 +255,38 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         build_model("llama-tiny")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LLMServer("llama-tiny")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model("gpt2-small")
     m, params = build_model("llama-tiny", device="cpu")
     assert params["wte"].device.type == "cpu"
     with pytest.raises(ValueError, match="unknown model"):
-        build_model("gpt2-small", device="cpu")    # not ported yet
+        build_model("gpt2-medium", device="cpu")   # in neither registry
+
+
+def test_registry_builds_both_families():
+    """build_model takes the registry names of both families and the
+    dict form; GPT keeps its params in f32 (cast per product, as the JAX
+    model), Llama stores its matmul weights in the compute dtype; and
+    LLMServer serves a GPT."""
+    m, params = build_model("gpt-tiny", device="cpu")
+    assert type(m).__name__ == "GPT" and m.config.n_layer == 2
+    assert all(p.dtype == torch.float32 for p in params.values())
+    m, params = build_model({"family": "gpt", "n_layer": 1}, device="cpu")
+    assert m.config.n_layer == 1 and m.config.dtype == torch.bfloat16
+    assert params["w_qkv"].dtype == torch.float32
+    m, params = build_model({"family": "llama", "preset": "tiny",
+                             "n_kv_head": 4}, device="cpu")
+    assert m.config.n_kv_head == 4 and params["w_q"].dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="family"):
+        build_model({"family": "moe"}, device="cpu")
+    server = LLMServer("gpt-tiny", engine_config=dict(ENGINE_KW),
+                       device="cpu")
+    try:
+        out = server({"tokens": [1, 5, 9], "max_tokens": 4})
+    finally:
+        server.shutdown()
+    assert out["finish_reason"] == "length" and len(out["tokens"]) == 4
+    server.engine.pool.check_leaks()
 
 
 def test_server_answers_concurrent_clients_in_order():

@@ -257,3 +257,104 @@ def test_loss_chunked_bf16_matches_jax():
         assert got.shape == want.shape, name
         rel = np.linalg.norm(got - want) / np.linalg.norm(want)
         assert rel <= 3e-2, (name, rel)
+
+
+# ---------------------------------------------------------------------------
+# positions and the paged serving path, against the JAX methods. Both sides
+# are f32 throughout (mha_reference / the plain paged primitives), so they
+# differ only by summation order: logits and written cache blocks to 2e-5.
+
+PAGED_TOL = 2e-5
+
+
+@pytest.fixture(scope="module")
+def plain_pair():
+    """GPTConfig.tiny in f32 with use_flash=False, the serving registry's
+    gpt-tiny, on the JAX init's weights."""
+    return _pair(use_flash=False)
+
+
+@pytest.mark.parametrize("positions", [None, "offset"])
+def test_apply_positions_match_jax(plain_pair, positions):
+    """GPT.apply indexes wpe by ``positions``; a positions tensor passed
+    in the reference's argument order is not taken for a generator."""
+    jm, jp, tm, tp = plain_pair
+    tokens = np.random.RandomState(0).randint(0, 512, (1, 8))
+    if positions is None:
+        want = jm.apply(jp, jnp.asarray(tokens))
+        got = tm.apply(tp, torch.from_numpy(tokens))
+    else:
+        pos = np.arange(8, 16)[None]
+        want = jm.apply(jp, jnp.asarray(tokens), jnp.asarray(pos))
+        got = tm.apply(tp, torch.from_numpy(tokens), torch.from_numpy(pos))
+        # the offset moves the logits far beyond the tolerance
+        base = tm.apply(tp, torch.from_numpy(tokens))
+        assert (got - base).abs().max() > 100 * PAGED_TOL
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=PAGED_TOL, rtol=0)
+
+
+def _assert_cache_matches(tcache, jcache):
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tcache[key].numpy(),
+                                   np.asarray(jcache[key]), atol=PAGED_TOL,
+                                   rtol=0, err_msg=key)
+
+
+def test_paged_prefill_extend_and_decode_match_jax(plain_pair):
+    """paged_prefill writes a 13-token prompt (padded to 16) into blocks
+    5, 2, 7, 4; paged_prefill_extend then writes a 5-token suffix (padded
+    to 8) at start 8 over the prefix's first two blocks, in a second
+    table whose third block is fresh; paged_decode_step continues both
+    sequences, with an inactive third slot. Logits and every written
+    cache block against the JAX methods."""
+    jm, jp, tm, tp = plain_pair
+    nb, bs = 10, 4
+    jcache = jm.init_paged_cache(nb, bs)
+    tcache = tm.init_paged_cache(nb, bs, torch.device("cpu"))
+    rng = np.random.default_rng(7)
+
+    prompt = rng.integers(1, 512, 13)
+    tokens = np.zeros((1, 16), np.int64)
+    tokens[0, :13] = prompt
+    row_a = np.array([5, 2, 7, 4, -1, -1], np.int64)
+    j_logits, jcache = jax.jit(jm.paged_prefill)(
+        jp, jcache, jnp.asarray(tokens), jnp.int32(13), jnp.asarray(row_a))
+    t_logits, tcache = tm.paged_prefill(tp, tcache, torch.from_numpy(tokens),
+                                        13, torch.from_numpy(row_a))
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                               atol=PAGED_TOL, rtol=0)
+    _assert_cache_matches(tcache, jcache)
+
+    suffix = np.zeros((1, 8), np.int64)
+    suffix[0, :5] = rng.integers(1, 512, 5)
+    row_b = np.array([5, 2, 9, 1, -1, -1], np.int64)
+    j_logits, jcache = jax.jit(jm.paged_prefill_extend)(
+        jp, jcache, jnp.asarray(suffix), jnp.int32(8), jnp.int32(5),
+        jnp.asarray(row_b))
+    t_logits, tcache = tm.paged_prefill_extend(
+        tp, tcache, torch.from_numpy(suffix), 8, 5, torch.from_numpy(row_b))
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                               atol=PAGED_TOL, rtol=0)
+    _assert_cache_matches(tcache, jcache)
+    # the extend computes the whole prompt's last logits at suffix cost
+    full = np.concatenate([prompt[:8], suffix[0, :5]])[None]
+    dense = tm.apply(tp, torch.from_numpy(full))[0, -1]
+    np.testing.assert_allclose(t_logits.numpy(), dense.numpy(),
+                               atol=PAGED_TOL, rtol=0)
+
+    step_tokens = np.array([int(t_logits.argmax()), 17, 99])
+    positions = np.array([13, 13, 3], np.int64)
+    rows = np.stack([row_a, row_b, np.array([0, 3, -1, -1, -1, -1])])
+    active = np.array([True, True, False])
+    j_logits, jcache = jax.jit(jm.paged_decode_step)(
+        jp, jcache, *map(jnp.asarray, (step_tokens, positions, rows, active)))
+    t_logits, tcache = tm.paged_decode_step(
+        tp, tcache, *map(torch.from_numpy,
+                         (step_tokens, positions, rows, active)))
+    np.testing.assert_allclose(t_logits.numpy()[:2],
+                               np.asarray(j_logits)[:2], atol=PAGED_TOL,
+                               rtol=0)
+    _assert_cache_matches(tcache, jcache)
+    # the inactive slot wrote nothing into its blocks 0 and 3
+    assert not tcache["k"][:, [0, 3]].any()

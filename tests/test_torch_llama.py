@@ -138,3 +138,91 @@ def test_cast_matmul_weights_keeps_head_and_norms_f32():
     for name, p in params.items():
         want = torch.bfloat16 if name in Llama.MATMUL_PARAMS else torch.float32
         assert p.dtype == want, name
+
+
+# ---------------------------------------------------------------------------
+# the rest of the public surface, against the JAX methods; f32 throughout,
+# so 2e-5 (summation order only)
+
+SURFACE_TOL = 2e-5
+
+
+def test_paged_prefill_extend_matches_jax(pair):
+    """A 13-token prompt prefilled into blocks 5, 2, 7, 4; then a 5-token
+    suffix at start 8 over its first two blocks, in a second table: RoPE at
+    positions 8.., logits and every cache block against the JAX method,
+    and the logits against the dense forward of the whole prompt."""
+    jm, jp, tm, tp = pair
+    nb, bs = 10, 4
+    jcache = jm.init_paged_cache(nb, bs)
+    tcache = tm.init_paged_cache(nb, bs, torch.device("cpu"))
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(1, 512, 13)
+    tokens = np.zeros((1, 16), np.int64)
+    tokens[0, :13] = prompt
+    row_a = np.array([5, 2, 7, 4, -1], np.int64)
+    _, jcache = jax.jit(jm.paged_prefill)(
+        jp, jcache, jnp.asarray(tokens), jnp.int32(13), jnp.asarray(row_a))
+    tm.paged_prefill(tp, tcache, torch.from_numpy(tokens), 13,
+                     torch.from_numpy(row_a))
+
+    suffix = np.zeros((1, 8), np.int64)
+    suffix[0, :5] = rng.integers(1, 512, 5)
+    row_b = np.array([5, 2, 9, 1, -1], np.int64)
+    j_logits, jcache = jax.jit(jm.paged_prefill_extend)(
+        jp, jcache, jnp.asarray(suffix), jnp.int32(8), jnp.int32(5),
+        jnp.asarray(row_b))
+    t_logits, tcache = tm.paged_prefill_extend(
+        tp, tcache, torch.from_numpy(suffix), 8, 5, torch.from_numpy(row_b))
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                               atol=SURFACE_TOL, rtol=0)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tcache[key].numpy(),
+                                   np.asarray(jcache[key]),
+                                   atol=SURFACE_TOL, rtol=0)
+    full = np.concatenate([prompt[:8], suffix[0, :5]])[None]
+    dense = tm.apply(tp, torch.from_numpy(full))[0, -1]
+    np.testing.assert_allclose(t_logits.numpy(), dense.numpy(),
+                               atol=SURFACE_TOL, rtol=0)
+
+
+def test_loss_and_flops_match_jax(pair):
+    jm, jp, tm, tp = pair
+    tokens = np.random.default_rng(4).integers(0, 512, (2, 16))
+    targets = np.roll(tokens, -1, axis=1)
+    want = jm.loss(jp, jnp.asarray(tokens), jnp.asarray(targets))
+    got = tm.loss(tp, torch.from_numpy(tokens), torch.from_numpy(targets))
+    np.testing.assert_allclose(got.item(), float(want), atol=SURFACE_TOL,
+                               rtol=0)
+    for seq in (None, 64):
+        assert tm.flops_per_token(seq) == jm.flops_per_token(seq)
+    big = Llama(LlamaConfig.llama2_7b())
+    assert big.flops_per_token(4096) == \
+        JLlama(JConfig.llama2_7b()).flops_per_token(4096)
+
+
+def test_dense_cache_decode_matches_jax(pair):
+    """init_cache / decode_step: three steps of a batch of two from
+    position 0, logits and the returned cache against the JAX methods,
+    and the step logits against the dense forward of the context."""
+    jm, jp, tm, tp = pair
+    jcache = jm.init_cache(2)
+    tcache = tm.init_cache(2, torch.device("cpu"))
+    assert tcache["k"].shape == jcache["k"].shape
+    toks = np.random.default_rng(5).integers(1, 512, (2, 3))
+    jstep = jax.jit(jm.decode_step)
+    for i in range(3):
+        step = toks[:, i:i + 1]
+        j_logits, jcache = jstep(jp, jcache, jnp.asarray(step, jnp.int32))
+        t_logits, tcache = tm.decode_step(tp, tcache, torch.from_numpy(step))
+        np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                                   atol=SURFACE_TOL, rtol=0)
+        for key in ("k", "v"):
+            np.testing.assert_allclose(tcache[key].numpy(),
+                                       np.asarray(jcache[key]),
+                                       atol=SURFACE_TOL, rtol=0)
+        np.testing.assert_array_equal(tcache["pos"].numpy(),
+                                      np.asarray(jcache["pos"]))
+    dense = tm.apply(tp, torch.from_numpy(toks))[:, -1]
+    np.testing.assert_allclose(t_logits.numpy(), dense.numpy(),
+                               atol=SURFACE_TOL, rtol=0)

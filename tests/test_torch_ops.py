@@ -408,6 +408,30 @@ def test_paged_write_step_drops_inactive_slots():
     np.testing.assert_array_equal(_np(got)[0], cache[0])
 
 
+@pytest.mark.parametrize("active", [[False, False, False],
+                                    [False, True, True]])
+def test_paged_write_step_with_nothing_or_only_unmapped_kept(active):
+    """Every row dropped: inactive, or active on block id -1 (which the
+    port drops; JAX's scatter would wrap -1 to the last block, a case the
+    engine never writes)."""
+    cache = _cache(18)
+    rows = np.array([[1, 2, -1], [-1, -1, -1], [0, -1, -1]], np.int64)
+    positions = np.array([5, 2, 7], np.int64)          # slot 2: block 1 = -1
+    new = np.random.default_rng(19).standard_normal((3, 2, 8),
+                                                    dtype=np.float32)
+    active = np.array(active)
+    got = tops.paged_write_step(torch.from_numpy(cache.copy()),
+                                torch.from_numpy(rows),
+                                torch.from_numpy(positions),
+                                torch.from_numpy(new), torch.from_numpy(active))
+    np.testing.assert_array_equal(_np(got), cache)
+    if not active.any():
+        want = jops.paged_write_step(*map(jnp.asarray, (cache, rows,
+                                                        positions, new,
+                                                        active)))
+        np.testing.assert_array_equal(_np(got), _np(want))
+
+
 @pytest.mark.parametrize("start", [0, 3])
 def test_paged_write_prefill_drops_pad_rows(start):
     cache = _cache(13)
