@@ -72,12 +72,45 @@ Phases, each of which exits non-zero on failure:
               decode step of GPT-2 small and of Llama-2-7B (the latter
               after phase 4).
 
-Four main paths are counted: serving (phases 3-4), training (phase 5's
-steps), fused training (phase 6's steps) and GPT serving (phase 7's timed
-engine runs, which launch no hand-written kernel). Every launch count is
+8. moe      — MoEConfig.small (Mixtral-style at GPT-2 small width: 12
+              layers, d_model 768, 12 heads of 64, 8 experts of d_ff
+              3072, top-2, capacity factor 1.25, vocab 50304; bf16
+              compute, f32 params, random weights from seed 0) trained
+              through MoE.loss with torch.optim.AdamW at B=8, S=1024: 3
+              warm-up and 10 timed steps, each launching flash_fwd and
+              flash_bwd once per layer, plus one profiled step; the
+              step-0 loss is GPT-2's cross entropy plus the measured aux
+              loss, and falls; the share of routes dropped. Then the same
+              model in f32 at B=2: every gradient and every layer's routes
+              of the flash model against the mha_reference model, and
+              four planted controls (capacity counted k-major, kept
+              weights not renormalised, attention without its causal mask,
+              logits rounded to bf16) that must fail.
+9. vit      — ViT-B/16 (10 classes, bf16, remat) on 64 images of 224 x
+              224: four AdamW steps (no kernel launch: 197 tokens take
+              mha_reference), the loss falls from ln(10); bf16 logits
+              against the f32 forward, with a planted control (patch
+              vectors in (c, py, px) order) that must fail.
+10. resnet  — ResNet-18/CIFAR at B=128 trained by SGD with momentum (the
+              loss falls, every batch-norm buffer moves); the reference's
+              resnet50_imagenet layout at 224, B=16: one step, its bf16
+              forward against its f32 forward, and its f32 forward on the
+              card against the CPU's, which two planted controls
+              (symmetric padding, the unbiased variance) must fail.
+11. head dims — flash_fwd and flash_bwd at head dims 16 and 48 (zero-padded
+              to the 32 and 64 instances), causal and not, against the
+              plain versions; the padded call with sm_scale from the
+              padded D must fail; MoEConfig.tiny (head dim 16) in f32
+              through the padded kernel against its mha_reference model.
+
+Seven main paths are counted: serving (phases 3-4), training (phase 5's
+steps), fused training (phase 6's steps), MoE training (phase 8's
+steps), ViT and ResNet training (phases 9-10, which launch no
+hand-written kernel) and GPT serving (phase 7's timed engine runs, which
+launch none either; it runs after phase 11). Every launch count is
 zeroed just before each and read just after it; the kernel comparisons
-of phase 2, the gradient checks and phase 7's dense reference forward do
-not count.
+of phases 2 and 11, the gradient checks and phase 7's dense reference
+forward do not count.
 The last three lines are the card (as nvidia-smi prints it), the kernels
 JSON line and the result JSON line. Without a CUDA device, or without the
 ray_tpu_torch package beside this file, the script fails before printing
@@ -223,12 +256,14 @@ TOL_HEAD_ULPS = 1.0
 
 # Timed kernel cases: (label, [B, S, H, D], dtype, causal)
 GPT_CASE = "GPT-2 training"    # the training path's attention shape
+MOE_CASE = "MoE training"      # MoEConfig.small at B=8, S=1024
 FWD_CASES = [
     ("Llama S=1024", (1, 1024, 32, 128), "bfloat16", True),
     ("Llama S=4096", (1, 4096, 32, 128), "bfloat16", True),
     (GPT_CASE, (40, 1024, 12, 64), "bfloat16", True),
     ("non-causal", (2, 256, 12, 64), "bfloat16", False),
     ("f32", (2, 256, 4, 32), "float32", True),
+    (MOE_CASE, (8, 1024, 12, 64), "bfloat16", True),
 ]
 FWD_MAIN = "Llama S=4096"
 BWD_CASES = [
@@ -236,6 +271,7 @@ BWD_CASES = [
     ("S=4096", (2, 4096, 12, 64), "bfloat16", True),
     ("non-causal", (2, 256, 12, 64), "bfloat16", False),
     ("f32", (2, 256, 4, 32), "float32", True),
+    (MOE_CASE, (8, 1024, 12, 64), "bfloat16", True),
 ]
 # Checked against the plain version but not timed: the kernels' other
 # template instances, a length that is a multiple of 64 but not of 128
@@ -293,6 +329,76 @@ H100_BF16_PEAK = 989e12        # MFU denominator, as PEAK_FLOPS
 #   N(0, d_model * 0.02^2) and the loss is about ln(V) + d_model * 0.02^2
 #   / 2 = 10.8258 + 0.1536 for GPT-2 small; it must lie within 0.05.
 TOL_LOSS0 = 0.05
+# Mixtral-style MoE training at GPT-2 small width (MoEConfig.small(): 12
+# layers, d_model 768, 12 heads of 64, d_ff 3072, 8 experts, top-2,
+# capacity factor 1.25, vocab 50304; bf16 compute, f32 params): batch,
+# length, warm-up and timed steps (GPT-2's AdamW); the f32 gradient
+# check's batch.
+MOE_BATCH, MOE_SEQ = 8, 1024
+MOE_WARMUP, MOE_STEPS = 3, 10
+MOE_GRAD_BATCH = 2
+#   Step-0 loss: the cross entropy as GPT-2 small's (ln(50304) + 768 *
+#   0.02^2 / 2, within TOL_LOSS0) plus the aux loss measured in step 0.
+#   At uniform routing each layer's aux loss is coeff * E * sum_e (K / E)
+#   (1 / E) = coeff * K = 0.02, 0.24 over 12 layers; routing that is not
+#   uniform raises it. The measured one must lie within a factor
+#   TOL_MOE_AUX0 of 0.24.
+TOL_MOE_AUX0 = 1.5
+#   MoE gradients, full width in f32 at B=2, S=1024: the flash model (the
+#   f32 kernel instances) against the use_flash=False model on the same
+#   params. Each parameter's ||g - g_ref|| / ||g_ref|| at most
+#   TOL_MOE_GRAD (b_qkv's key third left out, as above), and every
+#   layer's routes (top-k experts and the kept set) equal: in f32 the two
+#   attention paths differ by summation order only, far below any
+#   router margin. Four planted controls must each fail (a route
+#   mismatch or an error above the limit): capacity counted k-major (at
+#   capacity factor MOE_DROP_CF, where routes drop, against the
+#   reference at the same factor), kept weights not renormalised,
+#   attention without its causal mask, logits rounded to bf16.
+#   On the H100: sound 6.3e-7 (w_up), routes 100%; the controls 1.15,
+#   1.75, 0.995 (routes differing) and, for the bf16 logits, 3.4e-5 with
+#   every route equal: the limit sits between.
+TOL_MOE_GRAD = 5e-6
+MOE_DROP_CF = 0.5
+MOE_CONTROLS = ("capacity counted k-major", "kept weights not renormalised",
+                "attention without its causal mask", "logits rounded to bf16")
+# ViT-B/16 (ViTConfig.b16(num_classes=10): 224 x 224 images, 196 patches
+# + CLS = 197 tokens, bf16, remat): batch and AdamW steps on one batch.
+# 197 is not a multiple of 8, so no step launches flash. Then the bf16
+# logits against the f32 forward of the same params: the largest error
+# over the largest |ref| at most TOL_VIT_LOGITS; a planted control
+# (patch vectors in (c, py, px) order instead of (py, px, c)) must fail.
+# On the H100 (NVIDIA H100 80GB HBM3, 700 W): 4.6e-3 sound, 0.47 for the
+# control.
+VIT_BATCH, VIT_STEPS = 64, 4
+TOL_VIT_LOGITS = 0.05
+VIT_CONTROL = "patch vectors in (c, py, px) order"
+# ResNet-18/CIFAR as examples/resnet_cifar_train.py trains it (SGD, lr
+# 0.1, momentum 0.9), at B=128 on 32 x 32 images, bf16; then the
+# reference's resnet50_imagenet layout (basic blocks, stages 3, 4, 6, 3)
+# at B=16 on 224 x 224 images: one step, and its train-mode forward
+#   - in bf16 against the f32 forward on the card: the largest error
+#     over the largest |ref| at most TOL_RESNET_BF16 (5.1e-3 on the
+#     H100);
+#   - in f32 on the card against the f32 forward on the CPU (cuDNN
+#     against torch's CPU kernels): at most TOL_RESNET_F32 (1.5e-6 on
+#     the H100). Two planted controls in the card's f32 forward must
+#     fail it: symmetric padding (PyTorch's padding=k//2 in place of
+#     XLA's SAME; 0.16) and the unbiased variance in batch norm (6.4e-4:
+#     the last stage normalises over 16 * 7 * 7 = 784 values).
+#   On one random batch the loss first rises (lr 0.1 from scratch: 2.30
+#   to 8.66 on the H100) and falls below its start after 12 steps there:
+#   20 steps.
+RESNET_BATCH, RESNET_STEPS, RESNET_LR, RESNET_MOMENTUM = 128, 20, 0.1, 0.9
+RESNET50_BATCH = 16
+TOL_RESNET_BF16 = 0.05
+TOL_RESNET_F32 = 3e-5
+RESNET_CONTROLS = ("symmetric padding", "unbiased variance")
+# Head dims that are not kernel instances, zero-padded to the next one:
+# [B, S, H, D] bf16, each causal and not, forward and backward against the
+# plain versions at the unpadded D (TOL_OUT, TOL_GRAD); the control, the
+# padded call with sm_scale from the padded D, must fail.
+HEAD_DIM_CASES = [(2, 256, 4, 16), (2, 256, 4, 48)]
 # Device kernels of a profiled step, by class: (class, name fragments).
 KERNEL_CLASSES = (("flash_fwd", ("flash_fwd_",)),
                   ("flash_bwd", ("flash_bwd_",)),
@@ -1230,6 +1336,28 @@ def ln_matmul_bwd_variant(x, g, b, w, dout, eps, fault):
             dout.float().sum(0).to(x.dtype))
 
 
+def param_rel_errors(names, got, ref):
+    """||g - g_ref|| / ||g_ref|| per parameter; w_qkv and b_qkv per third
+    (q, k, v), since a fault in ds reaches only the q and k thirds; the
+    key third of b_qkv (ZERO_GRADIENT) left out."""
+    out = {}
+    for n, a, b in zip(names, got, ref):
+        parts = zip("qkv", a.chunk(3, -1), b.chunk(3, -1)) \
+            if n in ("w_qkv", "b_qkv") else [("", a, b)]
+        for part, x, y in parts:
+            key = f"{n}[{part}]" if part else n
+            if key != ZERO_GRADIENT:
+                out[key] = ((x - y).norm() / y.norm()).item()
+    return out
+
+
+def worst_error(errs):
+    """(name, value) of the largest error; NaN counts as the largest."""
+    name = max(errs, key=lambda n: math.inf if math.isnan(errs[n])
+               else errs[n])
+    return name, errs[name]
+
+
 def grad_check(label, what, model, ref_model, params, counters, faults,
                tol, shown=()):
     """Every parameter's gradient of loss_chunked at [GRAD_BATCH, 1024],
@@ -1258,18 +1386,7 @@ def grad_check(label, what, model, ref_model, params, counters, faults,
     ref_loss, ref = grads(ref_model)
 
     def rel_errors(g):
-        """||g - g_ref|| / ||g_ref|| per parameter; w_qkv and b_qkv per
-        third (q, k, v), since a fault in ds reaches only the q and k
-        thirds."""
-        out = {}
-        for n, a, b in zip(names, g, ref):
-            parts = zip("qkv", a.chunk(3, -1), b.chunk(3, -1)) \
-                if n in ("w_qkv", "b_qkv") else [("", a, b)]
-            for part, x, y in parts:
-                key = f"{n}[{part}]" if part else n
-                if key != ZERO_GRADIENT:
-                    out[key] = ((x - y).norm() / y.norm()).item()
-        return out
+        return param_rel_errors(names, g, ref)
 
     before = {n: f.launches for n, (f, _) in counters.items()}
     loss, g = grads(model)
@@ -1289,10 +1406,7 @@ def grad_check(label, what, model, ref_model, params, counters, faults,
         finally:
             setattr(module, attr, original)
 
-    def worst(errs):   # NaN counts as the worst
-        name = max(errs, key=lambda n: math.inf if math.isnan(errs[n])
-                   else errs[n])
-        return name, errs[name]
+    worst = worst_error
 
     def agrees(errs):
         return all(e <= tol for e in errs.values())
@@ -1377,9 +1491,11 @@ def profiled(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # a user annotation (Optimizer.step#AdamW.step) carries the device
+    # time of the kernels inside it, which are counted on their own
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
+              and e.self_device_time_total > 0 and not e.is_user_annotation]
     return (wall_ms, {e.key: e.self_device_time_total / 1e3 for e in device},
             sum(e.count for e in device))
 
@@ -1516,6 +1632,580 @@ def phase_training(kernel_ms, fused=False):
     out["grad_check"] = (phase_fused_grad_check if fused
                          else phase_grad_check)(model, params)
     return out
+
+
+def moe_route_variant(model, xt, w_router, fault):
+    """MoE._route with one planted fault (a control for the MoE gradient
+    check): capacity positions counted k-major (every token's first
+    choice queues before any second choice), or the kept weights left
+    as the softmax gave them instead of renormalised."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.models.moe import Routes
+
+    c = model.config
+    T = xt.shape[0]
+    E, K = c.num_experts, c.top_k
+    cap = max(1, int(c.capacity_factor * T * K / E))
+    probs = torch.softmax(xt.float() @ w_router.float(), dim=-1)
+    top_w, top_e = torch.topk(probs, K, dim=-1)
+    assign = F.one_hot(top_e, E).float()
+    aux = c.aux_loss_coeff * E * (assign.sum(1).mean(0)
+                                  * probs.mean(0)).sum()
+    if fault == "capacity counted k-major":
+        flat = assign.transpose(0, 1).reshape(K * T, E).T
+        pos = (flat.cumsum(-1) - flat).T.reshape(K, T, E).transpose(0, 1)
+    else:
+        flat = assign.reshape(T * K, E).T
+        pos = (flat.cumsum(-1) - flat).T.reshape(T, K, E)
+    pos = (pos * assign).sum(-1)
+    keep = (pos < cap) & (top_w > 0)
+    top_w = torch.where(keep, top_w, torch.zeros_like(top_w))
+    if fault != "kept weights not renormalised":
+        top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    slot = torch.where(keep, pos, torch.full_like(pos, cap)).long()
+    pos_oh = torch.zeros((T, K, cap + 1), device=xt.device)
+    pos_oh.scatter_(-1, slot[..., None], 1.0)
+    combine = torch.bmm((assign * top_w[..., None]).transpose(1, 2),
+                        pos_oh[..., :cap])
+    return Routes(combine, aux, top_e, keep)
+
+
+def moe_recorded(model, fn, route=None):
+    """fn() with ``model._route`` recording each layer's routes (or
+    replaced by ``route(model, xt, w_router)``, a planted fault): (fn's
+    result, [Routes of each layer's call])."""
+    from ray_tpu_torch.models import MoE
+
+    routes = []
+    inner = route or MoE._route
+
+    def recording(xt, w_router):
+        r = inner(model, xt, w_router)
+        routes.append(r)
+        return r
+
+    model._route = recording
+    try:
+        return fn(), routes
+    finally:
+        del model._route
+
+
+def phase_moe_training(kernel_ms):
+    """MoEConfig.small (Mixtral-style, GPT-2 small width) trained with
+    AdamW at B=8, S=1024 through MoE.loss: launches a step (the flash
+    kernels once per layer each), the loss and its aux term, the share
+    of routes dropped at capacity, throughput, peak memory and the
+    profiled step's device time by kernel class."""
+    import torch
+
+    from ray_tpu_torch.models import MoE, MoEConfig
+    from ray_tpu_torch.ops import (flash_attention_bwd, flash_attention_fwd,
+                                   ln_matmul_fwd, matmul_residual_fwd)
+
+    label = "moe training"
+    c = MoEConfig.small()
+    check((c.n_layer, c.d_model, c.n_head, c.head_dim, c.d_ff,
+           c.num_experts, c.top_k, c.capacity_factor, c.padded_vocab,
+           c.dtype, c.param_dtype, c.use_flash)
+          == (12, 768, 12, 64, 3072, 8, 2, 1.25, 50304, torch.bfloat16,
+              torch.float32, True), f"not MoEConfig.small: {c}")
+    model = MoE(c)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = {n: p.requires_grad_() for n, p in model.init(gen).items()}
+    opt = torch.optim.AdamW(params.values(), lr=TRAIN_LR,
+                            weight_decay=TRAIN_WD)
+    tokens = torch.randint(0, c.vocab_size, (MOE_BATCH, MOE_SEQ),
+                           generator=gen, device="cuda")
+    targets = torch.roll(tokens, -1, dims=1)
+    counters = {"flash_fwd": flash_attention_fwd,
+                "flash_bwd": flash_attention_bwd, "ln_matmul": ln_matmul_fwd,
+                "mm_res": matmul_residual_fwd}
+    expected = {"flash_fwd": c.n_layer, "flash_bwd": c.n_layer,
+                "ln_matmul": 0, "mm_res": 0}
+    losses, auxes, dropped, per_step = [], [], [], []
+
+    def step():
+        before = {n: f.launches for n, f in counters.items()}
+        opt.zero_grad(set_to_none=True)
+        loss, routes = moe_recorded(
+            model, lambda: model.loss(params, tokens, targets))
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+        auxes.append(sum(r.aux.detach() for r in routes))
+        dropped.append(sum((~r.keep).sum() for r in routes))
+        per_step.append({n: f.launches - before[n]
+                         for n, f in counters.items()})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():            # the MoE training path starts here
+        f.launches = 0
+    for _ in range(MOE_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MOE_STEPS):
+        step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    loss_values = [x.item() for x in losses]
+    aux_values = [x.item() for x in auxes]
+    routes_a_step = MOE_BATCH * MOE_SEQ * c.top_k * c.n_layer
+    drop_share = [x.item() / routes_a_step for x in dropped]
+    prof = profile_step(step, label)   # one step after the counted ones
+    sec_per_step = dt / MOE_STEPS
+    tokens_per_s = MOE_BATCH * MOE_SEQ / sec_per_step
+    split = {n: c.n_layer * kernel_ms[n] for n in ("flash_fwd", "flash_bwd")}
+    split["rest"] = sec_per_step * 1e3 - sum(split.values())
+    ce0 = math.log(c.padded_vocab) + c.d_model * 0.02 ** 2 / 2
+    aux_uniform = c.aux_loss_coeff * c.top_k * c.n_layer
+    out = {
+        "moe_small_train_tokens_per_sec_per_chip": tokens_per_s,
+        "sec_per_step": sec_per_step, "batch": MOE_BATCH, "seq": MOE_SEQ,
+        "steps_timed": MOE_STEPS, "params": model.num_params(),
+        "losses": loss_values, "aux_losses": aux_values,
+        "dropped_route_share": drop_share, "peak_memory_gib": peak_gib,
+        "launches": {n: v for n, v in launches.items() if expected[n]},
+        "step_split_ms": split, "profile": prof,
+    }
+    print(f"[{label}] MoEConfig.small ({model.num_params()} params, "
+          f"{c.num_experts} experts, top-{c.top_k}, capacity factor "
+          f"{c.capacity_factor}) B={MOE_BATCH} S={MOE_SEQ}: "
+          f"{tokens_per_s:.1f} tokens/s, {sec_per_step * 1e3:.2f} ms/step; "
+          f"losses {[round(x, 4) for x in loss_values]}; aux losses "
+          f"{[round(x, 4) for x in aux_values]} (uniform routing: "
+          f"{aux_uniform:.2f}); share of (token, k) routes dropped "
+          f"{[round(x, 4) for x in drop_share]}; peak {peak_gib:.2f} GiB "
+          f"allocated; launches per step "
+          f"{[dict(t) for t in {tuple(d.items()) for d in per_step}]}; step "
+          f"split (launches x kernel ms): "
+          + ", ".join(f"{n} {ms:.2f} ms" for n, ms in split.items()))
+    check(all(n == expected for n in per_step),
+          f"{label}: launches per step {per_step}, expected {expected}")
+    check(all(math.isfinite(x) for x in loss_values + aux_values),
+          f"{label}: non-finite loss {loss_values} or aux {aux_values}")
+    check(1 / TOL_MOE_AUX0 <= aux_values[0] / aux_uniform <= TOL_MOE_AUX0,
+          f"{label}: step-0 aux loss {aux_values[0]} is not within a factor "
+          f"{TOL_MOE_AUX0} of {aux_uniform}")
+    check(abs(loss_values[0] - ce0 - aux_values[0]) <= TOL_LOSS0,
+          f"{label}: step-0 loss {loss_values[0]} is not ln("
+          f"{c.padded_vocab}) + {c.d_model} * 0.02^2 / 2 = {ce0:.4f} plus "
+          f"the aux loss {aux_values[0]:.4f} (tol {TOL_LOSS0})")
+    check(loss_values[-1] < loss_values[0],
+          f"{label}: loss did not fall: {loss_values}")
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["grad_check"] = phase_moe_grad_check(params)
+    return out
+
+
+def phase_moe_grad_check(params):
+    """MoEConfig.small in f32 at B=2, S=1024: the flash model against the
+    use_flash=False model on the same params (every parameter's gradient
+    and every layer's routes), then the four planted controls."""
+    import torch
+
+    from ray_tpu_torch.models import MoE, MoEConfig
+    from ray_tpu_torch.ops import flash_attention, flash_attention_fwd
+
+    moe_mod = importlib.import_module("ray_tpu_torch.models.moe")
+    label = "moe training"
+    names = list(params)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    c = MoEConfig.small(dtype=torch.float32)
+    tokens = torch.randint(0, c.vocab_size, (MOE_GRAD_BATCH, MOE_SEQ),
+                           generator=gen, device="cuda")
+    targets = torch.roll(tokens, -1, dims=1)
+
+    def run(model, route=None):
+        """(loss, gradients, routes) of one loss and backward."""
+        def fn():
+            loss = model.loss(params, tokens, targets)
+            return loss.item(), torch.autograd.grad(
+                loss, [params[n] for n in names])
+        (loss, grads), routes = moe_recorded(model, fn, route)
+        return loss, grads, routes
+
+    def compare(got, ref):
+        """(per-parameter relative errors, share of layers' routes equal:
+        top-k experts and kept set)."""
+        errs = param_rel_errors(names, got[1], ref[1])
+        same = [torch.equal(a.top_e, b.top_e) and torch.equal(a.keep, b.keep)
+                for a, b in zip(got[2], ref[2])]
+        return errs, sum(same) / len(same)
+
+    def agrees(errs, route_share):
+        return route_share == 1.0 and all(e <= TOL_MOE_GRAD
+                                          for e in errs.values())
+
+    flash_model, ref_model = MoE(c), MoE(dataclasses.replace(
+        c, use_flash=False))
+    before = flash_attention_fwd.launches
+    sound = run(flash_model)
+    check(flash_attention_fwd.launches - before == c.n_layer,
+          f"{label}: the f32 flash model launched "
+          f"{flash_attention_fwd.launches - before} flash_fwd, expected "
+          f"{c.n_layer}")
+    ref = run(ref_model)
+    sound_errs, sound_routes = compare(sound, ref)
+    del sound
+    drop_cf = dataclasses.replace(c, capacity_factor=MOE_DROP_CF)
+    ref_drop = run(MoE(dataclasses.replace(drop_cf, use_flash=False)))
+    drop_share = sum((~r.keep).float().mean().item()
+                     for r in ref_drop[2]) / c.n_layer
+    results = {}
+    for fault in MOE_CONTROLS:
+        model = MoE(drop_cf if fault == "capacity counted k-major" else c)
+        route = None
+        against = ref_drop if model.config is drop_cf else ref
+        if fault in ("capacity counted k-major",
+                     "kept weights not renormalised"):
+            def route(m, xt, w, fault=fault):
+                return moe_route_variant(m, xt, w, fault)
+        saved = {}
+        if fault == "attention without its causal mask":
+            saved[(moe_mod, "flash_attention")] = moe_mod.flash_attention
+            moe_mod.flash_attention = (
+                lambda q, k, v, causal=True, **kw:
+                flash_attention(q, k, v, causal=False, **kw))
+        if fault == "logits rounded to bf16":
+            model._lm_head = (lambda wte, x, m=model: MoE._lm_head(
+                m, wte, x).to(torch.bfloat16).float())
+        try:
+            results[fault] = compare(run(model, route), against)
+        finally:
+            for (mod, attr), fn in saved.items():
+                setattr(mod, attr, fn)
+    print(f"[{label}] gradient check [{MOE_GRAD_BATCH}, {MOE_SEQ}] f32, "
+          f"flash vs mha_reference model: routes equal in "
+          f"{sound_routes:.0%} of layers; worst ||g - g_ref|| / ||g_ref|| "
+          f"{worst_error(sound_errs)[1]:.4e} ({worst_error(sound_errs)[0]}; "
+          f"tol {TOL_MOE_GRAD}); per parameter "
+          + json.dumps({n: float(f"{e:.4g}")
+                        for n, e in sound_errs.items()}))
+    print(f"[{label}] capacity factor {MOE_DROP_CF}: share of (token, k) "
+          f"routes dropped {drop_share:.4f}")
+    for fault, (errs, routes) in results.items():
+        print(f"[{label}] control, {fault}: routes equal in {routes:.0%} of "
+              f"layers; worst {worst_error(errs)[1]:.4e} "
+              f"({worst_error(errs)[0]}); per parameter "
+              f"{json.dumps({n: float(f'{e:.4g}') for n, e in errs.items()})}")
+    check(agrees(sound_errs, sound_routes),
+          f"{label}: f32 flash-model gradients or routes disagree with the "
+          "mha_reference model's")
+    check(drop_share > 0, f"{label}: no route dropped at capacity factor "
+                          f"{MOE_DROP_CF}")
+    for fault, (errs, routes) in results.items():
+        check(not agrees(errs, routes),
+              f"{label}: control '{fault}' passes the gradient check")
+    return dict(rel_err=sound_errs, route_share=sound_routes,
+                drop_share_at_drop_cf=drop_share,
+                controls={f: dict(worst=worst_error(e)[1], route_share=r)
+                          for f, (e, r) in results.items()})
+
+
+def logits_rel_error(got, ref):
+    """The largest |got - ref| over the largest |ref|."""
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+def phase_vit(counters):
+    """ViT-B/16 (num_classes=10, bf16, remat) trained for a few AdamW
+    steps on one batch of 64 images: the loss falls from ln(10) (the head
+    starts at zero), no step launches a kernel (197 tokens take
+    mha_reference); then the bf16 logits against the f32 forward, with a
+    planted control."""
+    import torch
+
+    from ray_tpu_torch.models import ViT, ViTConfig
+
+    label = "vit"
+    c = ViTConfig.b16(num_classes=10)
+    check((c.image_size, c.patch_size, c.n_layer, c.d_model, c.n_head,
+           c.d_ff, c.num_patches + 1, c.dtype, c.remat)
+          == (224, 16, 12, 768, 12, 3072, 197, torch.bfloat16, True),
+          f"not ViT-B/16: {c}")
+    model = ViT(c)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    params = {n: p.requires_grad_() for n, p in model.init(gen).items()}
+    opt = torch.optim.AdamW(params.values(), lr=TRAIN_LR,
+                            weight_decay=TRAIN_WD)
+    images = torch.randn((VIT_BATCH, c.image_size, c.image_size, 3),
+                         generator=gen, device="cuda")
+    labels = torch.randint(0, c.num_classes, (VIT_BATCH,), generator=gen,
+                           device="cuda")
+    for f in counters:                  # the ViT training path starts here
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(VIT_STEPS):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(params, images, labels)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t0)
+    launches = {f.__name__: f.launches for f in counters}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del opt
+    with torch.no_grad():
+        got = model.apply(params, images)
+        ref = ViT(dataclasses.replace(c, dtype=torch.float32,
+                                      remat=False)).apply(params, images)
+        err = logits_rel_error(got, ref)
+        p = c.patch_size
+
+        def patches_cpp(x):          # the control: (c, py, px) order
+            B, H, W, C = x.shape
+            x = x.reshape(B, H // p, p, W // p, p, C)
+            return x.permute(0, 1, 3, 5, 2, 4).reshape(
+                B, (H // p) * (W // p), p * p * C)
+
+        model._patchify = patches_cpp
+        ctl = logits_rel_error(model.apply(params, images), ref)
+        del model._patchify
+    print(f"[{label}] ViT-B/16 ({sum(v.numel() for v in params.values())} "
+          f"params) B={VIT_BATCH} {c.image_size}x{c.image_size}, bf16, "
+          f"remat: losses "
+          f"{[round(x, 4) for x in losses]}; step s "
+          f"{[round(x, 4) for x in step_s]} (host clock, the first with "
+          f"its warm-up); peak {peak_gib:.2f} GiB; kernel launches "
+          f"{launches}; bf16 logits vs the f32 forward: max err / max|ref| "
+          f"{err:.4e} (tol {TOL_VIT_LOGITS}); control ({VIT_CONTROL}): "
+          f"{ctl:.4e}")
+    check(not any(launches.values()), f"{label}: the ViT path launched "
+          f"{launches}; at 197 tokens its attention is mha_reference")
+    check(all(math.isfinite(x) for x in losses), f"{label}: non-finite "
+                                                 f"loss {losses}")
+    check(abs(losses[0] - math.log(c.num_classes)) <= 1e-4,
+          f"{label}: step-0 loss {losses[0]} is not ln({c.num_classes}): "
+          "the head starts at zero")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+    check(err <= TOL_VIT_LOGITS, f"{label}: bf16 logits disagree with the "
+                                 "f32 forward")
+    check(ctl > TOL_VIT_LOGITS, f"{label}: the control '{VIT_CONTROL}' "
+                                "passes the logits check")
+    return dict(losses=losses, step_s=step_s, peak_memory_gib=peak_gib,
+                launches=launches, logits_rel_err=err, control=ctl)
+
+
+def resnet_forward_variant(model, params, state, images, fault):
+    """ResNet.apply(train=True) with one planted fault (a control for the
+    f32 forward check): PyTorch's symmetric padding=k//2 in place of
+    XLA's SAME, or the unbiased batch variance."""
+    import torch
+    import torch.nn.functional as F
+
+
+    resnet_mod = importlib.import_module("ray_tpu_torch.models.resnet")
+    saved = resnet_mod._same_pad, torch.Tensor.var
+    if fault == "symmetric padding":
+        resnet_mod._same_pad = (lambda x, k, stride, value=0.0:
+                                F.pad(x, [k // 2] * 4, value=value))
+    else:
+        var = torch.Tensor.var
+        torch.Tensor.var = (lambda self, dim=None, unbiased=False, **kw:
+                            var(self, dim=dim, unbiased=True, **kw))
+    try:
+        return model.apply(params, state, images, train=True)[0]
+    finally:
+        resnet_mod._same_pad, torch.Tensor.var = saved
+
+
+def phase_resnet(counters):
+    """ResNet-18/CIFAR trained by SGD with momentum (loss falls, batch-norm
+    state moves), then the reference's resnet50_imagenet layout at 224:
+    one step, and its f32 forward checks with two planted controls."""
+    import torch
+
+    from ray_tpu_torch.models import ResNet, ResNetConfig
+
+    label = "resnet"
+    c = ResNetConfig.resnet18_cifar()
+    check((c.stage_sizes, c.width, c.small_inputs, c.num_classes, c.dtype)
+          == ((2, 2, 2, 2), 64, True, 10, torch.bfloat16),
+          f"not ResNet-18/CIFAR: {c}")
+    model = ResNet(c)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    params, state0 = model.init(gen)
+    params = {n: p.requires_grad_() for n, p in params.items()}
+    opt = torch.optim.SGD(params.values(), lr=RESNET_LR,
+                          momentum=RESNET_MOMENTUM)
+    images = torch.randn((RESNET_BATCH, 32, 32, 3), generator=gen,
+                         device="cuda")
+    labels = torch.randint(0, 10, (RESNET_BATCH,), generator=gen,
+                           device="cuda")
+    for f in counters:              # the ResNet training path starts here
+        f.launches = 0
+    torch.cuda.synchronize()
+    losses, step_s, state = [], [], state0
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss, state = model.loss(params, state, images, labels)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t0)
+    launches = {f.__name__: f.launches for f in counters}
+    moved = sum(not torch.equal(state[n], state0[n]) for n in state)
+    del opt
+    print(f"[{label}] ResNet-18/CIFAR B={RESNET_BATCH} 32x32 bf16, SGD lr "
+          f"{RESNET_LR} momentum {RESNET_MOMENTUM}: losses "
+          f"{[round(x, 4) for x in losses]}; step s "
+          f"{[round(x, 4) for x in step_s]} (host clock); batch-norm "
+          f"buffers moved {moved} of {len(state)}; kernel launches "
+          f"{launches}")
+    check(all(math.isfinite(x) for x in losses), f"{label}: non-finite "
+                                                 f"loss {losses}")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+    check(moved == len(state), f"{label}: {len(state) - moved} batch-norm "
+                               "buffers did not move")
+    check(not any(launches.values()), f"{label} launched {launches}")
+
+    c50 = ResNetConfig.resnet50_imagenet()
+    model = ResNet(c50)
+    params, state0 = model.init(gen)
+    params = {n: p.requires_grad_() for n, p in params.items()}
+    images = torch.randn((RESNET50_BATCH, 224, 224, 3), generator=gen,
+                         device="cuda")
+    labels = torch.randint(0, c50.num_classes, (RESNET50_BATCH,),
+                           generator=gen, device="cuda")
+    opt = torch.optim.SGD(params.values(), lr=RESNET_LR,
+                          momentum=RESNET_MOMENTUM)
+    t0 = time.perf_counter()
+    loss, state = model.loss(params, state0, images, labels)
+    loss.backward()
+    opt.step()
+    loss50 = loss.item()
+    step50_s = time.perf_counter() - t0
+    del opt
+    f32 = ResNet(dataclasses.replace(c50, dtype=torch.float32))
+    with torch.no_grad():
+        ref, _ = f32.apply(params, state, images, train=True)
+        bf16, _ = model.apply(params, state, images, train=True)
+        cpu_params = {n: p.detach().cpu() for n, p in params.items()}
+        cpu_ref, _ = f32.apply(cpu_params, {n: v.cpu() for n, v in
+                                            state.items()},
+                               images.cpu(), train=True)
+        err_bf16 = logits_rel_error(bf16, ref)
+        err_f32 = logits_rel_error(ref.cpu(), cpu_ref)
+        controls = {fault: logits_rel_error(resnet_forward_variant(
+            f32, params, state, images, fault).cpu(), cpu_ref)
+            for fault in RESNET_CONTROLS}
+    print(f"[{label}] resnet50_imagenet (basic blocks, stages 3, 4, 6, 3; "
+          f"{sum(v.numel() for v in params.values())} params) B="
+          f"{RESNET50_BATCH} 224x224: one step, loss {loss50:.4f}, "
+          f"{step50_s:.3f} s (host clock, with its warm-up); train-mode "
+          f"logits max err / max|ref|: bf16 vs f32 on the card "
+          f"{err_bf16:.4e} (tol {TOL_RESNET_BF16}); f32 on the card vs f32 "
+          f"on the CPU {err_f32:.4e} (tol {TOL_RESNET_F32}); controls "
+          f"{json.dumps({f: float(f'{e:.4g}') for f, e in controls.items()})}")
+    check(math.isfinite(loss50), f"{label}: non-finite loss {loss50}")
+    check(err_bf16 <= TOL_RESNET_BF16, f"{label}: bf16 logits disagree "
+                                       "with the f32 forward")
+    check(err_f32 <= TOL_RESNET_F32, f"{label}: the card's f32 forward "
+                                     "disagrees with the CPU's")
+    for fault, e in controls.items():
+        check(e > TOL_RESNET_F32, f"{label}: control '{fault}' passes the "
+                                  "f32 forward check")
+    return dict(resnet18_losses=losses, resnet18_step_s=step_s,
+                launches=launches, resnet50_loss=loss50,
+                resnet50_step_s=step50_s, logits_rel_err_bf16=err_bf16,
+                logits_rel_err_f32_vs_cpu=err_f32, controls=controls)
+
+
+def phase_head_dims():
+    """flash_attention_fwd / _bwd at head dims 16 and 48 (zero-padded to
+    the 32 and 64 instances) against the plain versions at the unpadded
+    D, and the padded call with sm_scale from the padded D, which must
+    fail."""
+    import torch
+
+    from ray_tpu_torch.models import MoE, MoEConfig
+    from ray_tpu_torch.ops import (flash_attention_bwd,
+                                   flash_attention_bwd_plain,
+                                   flash_attention_fwd,
+                                   flash_attention_fwd_plain)
+
+    fa_mod = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    rows = []
+    for i, shape in enumerate(HEAD_DIM_CASES):
+        d = shape[-1]
+        d_pad = fa_mod._instance_for("head dims", d)
+        for causal in (True, False):
+            q, k, v, do = _randn([shape] * 4, "bfloat16", SEED + 200 + i)
+            out, lse = flash_attention_fwd(q, k, v, causal)
+            ref_out, ref_lse = flash_attention_fwd_plain(q, k, v, causal)
+            err_out, err_row = out_errors(out, ref_out)
+            err_lse = (lse - ref_lse).abs().max().item()
+            grads = flash_attention_bwd(q, k, v, out, lse, do, causal)
+            ref = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+            scaled, row_err = grad_errors(grads, ref)
+            wrong, _ = fa_mod.padded_head_dim_call(
+                fa_mod._launch_fwd, d_pad, q, k, v, causal,
+                1.0 / math.sqrt(d_pad))
+            ctl_abs, ctl_row = out_errors(wrong, ref_out)
+            print(f"[head dims] {list(shape)} bf16 causal={causal}, padded "
+                  f"to {d_pad}: out err {err_out:.3e}, row-scaled "
+                  f"{err_row:.3e}, lse err {err_lse:.3e}; grads scaled "
+                  f"{scaled:.3e}, row-scaled {row_err:.3e}; control "
+                  f"(sm_scale from D={d_pad}): out err {ctl_abs:.3e}, "
+                  f"row-scaled {ctl_row:.3e}")
+            check(out.shape == q.shape and all(g.shape == q.shape
+                                               for g in grads),
+                  f"head dim {d}: output shapes")
+            check(out_agrees(err_out, err_row, "bfloat16")
+                  and err_lse <= TOL_LSE["bfloat16"],
+                  f"flash_fwd at head dim {d} disagrees with its plain "
+                  "version")
+            check(grads_agree(scaled, row_err, "bfloat16"),
+                  f"flash_bwd at head dim {d} disagrees with its plain "
+                  "version")
+            check(not out_agrees(ctl_abs, ctl_row, "bfloat16"),
+                  f"head dim {d}: the sm_scale control passes")
+            rows.append(dict(shape=list(shape), causal=causal, padded_to=d_pad,
+                             max_abs_err=err_out, row_scaled_err=err_row,
+                             lse_err=err_lse, grad_scaled_err=scaled,
+                             grad_row_err=row_err, control_err=ctl_abs))
+    # MoEConfig.tiny (head dim 16) in f32 at S=128 through the padded
+    # kernel, against the same model through mha_reference
+    c = MoEConfig.tiny(dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 4)
+    params = MoE(c).init(gen)
+    tokens = torch.randint(0, c.vocab_size, (2, 128), generator=gen,
+                           device="cuda")
+    before = flash_attention_fwd.launches
+    logits, _ = MoE(c).apply(params, tokens)
+    launched = flash_attention_fwd.launches - before
+    ref, _ = MoE(dataclasses.replace(c, use_flash=False)).apply(params,
+                                                                tokens)
+    err = (logits - ref).abs().max().item()
+    print(f"[head dims] MoEConfig.tiny f32 [2, 128] (head dim 16): "
+          f"{launched} flash_fwd launches, logits max abs err {err:.3e} "
+          f"against the mha_reference model (tol {TOL_OUT['float32']})")
+    check(launched == c.n_layer and err <= TOL_OUT["float32"],
+          "MoEConfig.tiny through the padded flash kernel disagrees with "
+          "its mha_reference model")
+    rows.append(dict(model="MoEConfig.tiny f32", launches=launched,
+                     logits_max_abs_err=err))
+    return rows
+
 
 def decode_split(label, model, params):
     """The host/device split of one decode step at a full batch of 8
@@ -1944,12 +2634,25 @@ def main() -> int:
         training_fused = phase_training(
             {**kernel_ms, "ln_matmul": fused_ms["QKV"] + fused_ms["FC"],
              "mm_res": fused_ms["proj"] + fused_ms["MLP out"]}, fused=True)
-        for path in (training, training_fused):
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_fwd = next(r for r in fwd_rows if r["label"] == MOE_CASE)
+        moe_bwd = next(r for r in bwd_rows if r["label"] == MOE_CASE)
+        moe_training = phase_moe_training(
+            {"flash_fwd": moe_fwd["ms"], "flash_bwd": moe_bwd["ms"]})
+        for path in (training, training_fused, moe_training):
             for name, n in path["launches"].items():
                 check(n > 0, f"a training path never launched {name}")
         gc.collect()
         torch.cuda.empty_cache()
+        vit = phase_vit(wrappers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        resnet = phase_resnet(wrappers)
+        gc.collect()
+        torch.cuda.empty_cache()
         with torch.no_grad():
+            head_dims = phase_head_dims()
             gpt_serving = phase_gpt_serving(wrappers)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1960,14 +2663,18 @@ def main() -> int:
     print(f"[memory] peak allocated: {serving_peak_gib:.1f} GiB up to the "
           f"end of serving, {training['peak_memory_gib']:.1f} GiB in the "
           f"training steps, {training_fused['peak_memory_gib']:.1f} GiB in "
-          f"the fused training steps")
+          f"the fused training steps, {moe_training['peak_memory_gib']:.1f} "
+          f"GiB in the MoE training steps, {vit['peak_memory_gib']:.1f} GiB "
+          f"in the ViT-B/16 steps")
     fwd_launches = dict(serving=serving_launches,
                         training=training["launches"]["flash_fwd"],
                         training_fused=training_fused["launches"]["flash_fwd"],
+                        moe_training=moe_training["launches"]["flash_fwd"],
                         gpt_serving=gpt_serving["launches"][
                             flash_attention_fwd.__name__])
     bwd_launches = dict(training=training["launches"]["flash_bwd"],
-                        training_fused=training_fused["launches"]["flash_bwd"])
+                        training_fused=training_fused["launches"]["flash_bwd"],
+                        moe_training=moe_training["launches"]["flash_bwd"])
 
     def bf16_max_err(rows):
         return max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
@@ -2028,7 +2735,9 @@ def main() -> int:
             "by_shape": rows,
         })
     summary = {"forward": forward, "serving": serving, "training": training,
-               "training_fused": training_fused, "gpt_serving": gpt_serving,
+               "training_fused": training_fused,
+               "moe_training": moe_training, "vit": vit, "resnet": resnet,
+               "head_dims": head_dims, "gpt_serving": gpt_serving,
                "fused_backward_products": fused_bwd, "lm_head": lm_head}
     print(f"[summary] {json.dumps(summary)}")
     print(card)

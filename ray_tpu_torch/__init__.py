@@ -5,10 +5,12 @@ package keeps its module layout and names so each counterpart is easy to
 find, and imports nothing of it (nor of JAX). What the port covers so far:
 
 - ``ops``: the numeric layers, ``mha_reference``, the paged KV-cache
-  primitives, and ``flash_attention`` whose forward is a CUDA kernel
-  written for Hopper (``csrc/flash_fwd.cu``);
-- ``models.llama``: the Llama family with its dense forward and its paged
-  serving programs;
+  primitives, ``flash_attention`` whose forward and backward are CUDA
+  kernels written for Hopper (``csrc/flash_fwd.cu``,
+  ``csrc/flash_bwd.cu``), and the fused ``ln_matmul`` and
+  ``matmul_residual`` (``csrc/ln_matmul.cu``, ``csrc/mm_res.cu``);
+- ``models``: the six families of ``ray_tpu.models`` (GPT, Llama, MoE,
+  ViT, ResNet, MLP), with loaders of the JAX package's parameters;
 - ``serve.llm``: the block pool, the continuous-batching engine and the
   ``LLMServer`` callable.
 

@@ -16,6 +16,13 @@ kernel against.
 ``custom_vjp``) whose forward saves (q, k, v, out, lse) and whose
 backward runs ``flash_attention_bwd`` on them, never the forward again.
 The two raw functions return tensors without a gradient.
+
+The kernels are instantiated for head dims 32, 64 and 128. A CUDA call
+with another head dim below 128 zero-pads q, k, v (and ``do``) to the
+next instance, launches the same kernel and slices the result back: zero
+columns add nothing to q.k^T, to delta, or to the first D columns of
+out, dq, dk and dv, and ``sm_scale`` stays 1/sqrt(D) of the unpadded D.
+A head dim above 128 still raises.
 """
 from __future__ import annotations
 
@@ -86,6 +93,32 @@ def _check_kernel_inputs(fn: str, q: torch.Tensor, k: torch.Tensor,
                              f"16-byte aligned")
 
 
+def _instance_for(fn: str, d: int) -> int:
+    """The smallest kernel instance that holds head dim ``d``."""
+    for inst in HEAD_DIMS:
+        if d <= inst:
+            return inst
+    raise ValueError(f"{fn}: head_dim {d} is above {HEAD_DIMS[-1]}, the "
+                     f"largest kernel instance; no kernel takes it")
+
+
+def padded_head_dim_call(launch, d_pad: int, *args):
+    """``launch(*args)`` with each 4-D tensor of ``args`` ([B, S, H, D]:
+    q, k, v, out, do) zero-padded on its last dim from D to ``d_pad``,
+    and each 4-D tensor of the result sliced back to D (other arguments,
+    lse among them, pass as they are). Exact for attention: the padded
+    columns of q and k add zero to every score, those of v make zero
+    output columns, and those of do add zero to delta. ``sm_scale`` must
+    be among ``args``, fixed from the unpadded D: ``launch`` would take
+    1/sqrt(d_pad) otherwise."""
+    d = args[0].shape[-1]
+    padded = [torch.nn.functional.pad(a, (0, d_pad - d))
+              if isinstance(a, torch.Tensor) and a.dim() == 4 else a
+              for a in args]
+    return tuple(r[..., :d].contiguous() if r.dim() == 4 else r
+                 for r in launch(*padded))
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -140,13 +173,25 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B, Sq, H, D], lse [B, H, Sq] f32), without a gradient. CPU
     tensors run the plain version; CUDA tensors launch csrc/flash_fwd.cu,
-    which takes bf16 or f32, head_dim 32/64/128, contiguous [B, S, H, D]
+    which takes bf16 or f32, head_dim up to 128 (32/64/128 directly, the
+    others zero-padded to the next of them), contiguous [B, S, H, D]
     inputs with S a multiple of 64 — anything else raises."""
     _check(q, k, v, causal)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, sm_scale)
+    d = q.shape[-1]
+    if d not in HEAD_DIMS:
+        return padded_head_dim_call(
+            _launch_fwd, _instance_for("flash_attention_fwd", d), q, k, v,
+            causal, sm_scale)
+    return _launch_fwd(q, k, v, causal, sm_scale)
+
+
+def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, sm_scale: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_kernel_inputs("flash_attention_fwd", q, k, v=v)
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
@@ -231,16 +276,28 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) from the forward's residuals and the output gradient
     ``do``. CPU tensors run the plain version; CUDA tensors launch
     csrc/flash_bwd.cu (its two kernels count as one launch) under the
-    forward's conditions — anything else raises. delta = rowsum(do * out)
-    is computed here, outside the kernel, as the JAX package does, and so
-    is q * sm_scale in q's dtype (``_scale_q``), which the bf16 kernels read
-    beside q."""
+    forward's conditions, head dims padded as there — anything else
+    raises. delta = rowsum(do * out) is computed here, outside the kernel,
+    as the JAX package does, and so is q * sm_scale in q's dtype
+    (``_scale_q``), which the bf16 kernels read beside q."""
     _check_bwd(q, k, v, out, lse, do, causal)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                          sm_scale)
+    d = q.shape[-1]
+    if d not in HEAD_DIMS:
+        return padded_head_dim_call(
+            _launch_bwd, _instance_for("flash_attention_bwd", d), q, k, v,
+            out, lse, do, causal, sm_scale)
+    return _launch_bwd(q, k, v, out, lse, do, causal, sm_scale)
+
+
+def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                causal: bool, sm_scale: float
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     _check_kernel_inputs("flash_attention_bwd", q, k, v=v, out=out, do=do)
     if lse.device != q.device or not lse.is_contiguous() \
             or lse.data_ptr() % 16:

@@ -371,6 +371,92 @@ def test_flash_fwd_has_no_fallback_off_cpu():
 
 
 # ---------------------------------------------------------------------------
+# head dims that are not kernel instances: zero-padded to the next one
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,d_pad", [(16, 32), (48, 64)])
+def test_padded_head_dim_call_matches_unpadded(d, d_pad, causal, dtype):
+    """The pad / launch / slice helper, with the plain versions standing
+    in for the kernels, against the plain versions at the unpadded D:
+    forward (out, lse) and backward (dq, dk, dv). Zero columns change no
+    sum, so the two agree to f32 summation order (2e-5 outputs, 2e-4
+    gradients) or to bf16 rounding (3e-2)."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(a).to(dt)
+                   for a in _qkv(21, b=2, s=128, h=2, d=d) + (
+                       np.random.default_rng(22).standard_normal(
+                           (2, 128, 2, d), dtype=np.float32),))
+    assert fa_mod._instance_for("test", d) == d_pad
+    scale = 1.0 / math.sqrt(d)
+    out, lse = fa_mod.padded_head_dim_call(
+        fa_mod.flash_attention_fwd_plain, d_pad, q, k, v, causal, scale)
+    ref_out, ref_lse = tops.flash_attention_fwd_plain(q, k, v, causal, scale)
+    assert out.shape == q.shape and out.is_contiguous()
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(_np(out), _np(ref_out), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(lse), _np(ref_lse), atol=tol, rtol=tol)
+    grads = fa_mod.padded_head_dim_call(
+        fa_mod.flash_attention_bwd_plain, d_pad, q, k, v, out, lse, do,
+        causal, scale)
+    ref = tops.flash_attention_bwd_plain(q, k, v, ref_out, ref_lse, do,
+                                         causal, scale)
+    gtol = 2e-4 if dtype == "float32" else BF16_TOL
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert g.shape == q.shape, name
+        np.testing.assert_allclose(_np(g), _np(r), atol=gtol, rtol=gtol,
+                                   err_msg=name)
+
+
+def test_padded_head_dim_needs_the_unpadded_sm_scale():
+    """Left to the launch, sm_scale would be 1/sqrt(padded D): another
+    function, far outside the tolerance."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(23, b=1, s=128, h=2, d=16))
+    ref, _ = tops.flash_attention_fwd_plain(q, k, v, True)
+    wrong, _ = fa_mod.padded_head_dim_call(
+        fa_mod.flash_attention_fwd_plain, 32, q, k, v, True, None)
+    assert (wrong - ref).abs().max() > 100 * F32_TOL
+
+
+@pytest.mark.parametrize("d,launched_d", [(16, 32), (48, 64), (32, 32),
+                                          (128, 128)])
+def test_flash_routes_other_head_dims_through_padding(d, launched_d,
+                                                      monkeypatch):
+    """Off the CPU (here a meta tensor, the launches replaced by spies) a
+    head dim that is not an instance reaches the launch padded to the next
+    instance, with sm_scale from the unpadded D, and comes back at D."""
+    seen = []
+
+    def fwd_spy(q, k, v, causal, sm_scale):
+        seen.append(("fwd", q.shape[-1], sm_scale))
+        return torch.empty_like(q), q.new_empty(
+            (q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32)
+
+    def bwd_spy(q, k, v, out, lse, do, causal, sm_scale):
+        seen.append(("bwd", do.shape[-1], sm_scale))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+    monkeypatch.setattr(fa_mod, "_launch_fwd", fwd_spy)
+    monkeypatch.setattr(fa_mod, "_launch_bwd", bwd_spy)
+    q = torch.empty((1, 128, 2, d), device="meta")
+    out, lse = tops.flash_attention_fwd(q, q, q)
+    grads = tops.flash_attention_bwd(q, q, q, out, lse, q)
+    assert out.shape == q.shape and all(g.shape == q.shape for g in grads)
+    assert seen == [("fwd", launched_d, 1 / math.sqrt(d)),
+                    ("bwd", launched_d, 1 / math.sqrt(d))]
+
+
+def test_flash_head_dim_above_128_raises():
+    q = torch.empty((1, 128, 2, 160), device="meta")
+    with pytest.raises(ValueError, match="above 128"):
+        tops.flash_attention_fwd(q, q, q)
+    lse = torch.empty((1, 2, 128), device="meta")
+    with pytest.raises(ValueError, match="above 128"):
+        tops.flash_attention_bwd(q, q, q, q, lse, q)
+
+
+# ---------------------------------------------------------------------------
 # paged KV-cache primitives
 
 

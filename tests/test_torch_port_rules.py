@@ -53,7 +53,10 @@ def imported_modules(tree: ast.AST):
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for want in ("ray_tpu_torch/__init__.py", "chip_smoke.py",
-                 "ray_tpu_torch/serve/llm/prefix_cache.py", *NO_TRY_FILES):
+                 "ray_tpu_torch/serve/llm/prefix_cache.py",
+                 "ray_tpu_torch/models/moe.py", "ray_tpu_torch/models/vit.py",
+                 "ray_tpu_torch/models/resnet.py",
+                 "ray_tpu_torch/models/mlp.py", *NO_TRY_FILES):
         assert want in names
     for kernel in ("flash_fwd.cu", "flash_bwd.cu", "ln_matmul.cu",
                    "mm_res.cu", "tile_gemm.cuh", "hopper.cuh",
