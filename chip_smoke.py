@@ -103,11 +103,40 @@ Phases, each of which exits non-zero on failure:
               padded D must fail; MoEConfig.tiny (head dim 16) in f32
               through the padded kernel against its mha_reference model.
 
-Seven main paths are counted: serving (phases 3-4), training (phase 5's
+12. disagg  — ray_tpu_torch.init(num_cpus=4), then
+              DisaggLLM("gpt2-small", block_size=16), started on a thread
+              while this process runs the reference and the control
+              below: a PrefillStage and a DecodeStage actor, each in its
+              own worker process on the card (their pids among
+              nvidia-smi's compute apps where nvidia-smi sees this pid
+              namespace; their CUDA memory in any case), joined by a two-stage compiled graph whose
+              shared-memory channel carries the bf16 KV blocks. 8 prompts
+              of 3-112 tokens from SEED and one of exactly 112 (7 blocks,
+              the largest KV that fits the 4 MiB channel), 32 greedy
+              tokens each, one at a time: each stream equals the
+              in-process LLMEngine's on the same weights, every request
+              finishes by length, and the decode stage holds no block
+              afterwards. A prompt of 113-128 tokens (8 blocks) raises
+              ChannelFullError. A planted control (the in-process
+              engine's add_prefilled, fed a PrefillStage's blocks in
+              reversed order; the stage shares the engine's model) must
+              fail the stream check. Then DisaggLLM.compile builds the
+              graph again on the same two stages with codec "int8" and
+              "e4m3", for the first 3 prompts: the first tokens equal
+              the raw run's (they come from the prefill, before the
+              wire) and the share of equal decode tokens is printed.
+              Prints each request's generate() wall time and the
+              envelope bytes the prefill stage wrote for it (its
+              ray_tpu_cgraph_channel_bytes_total, per codec) beside the
+              in-process engine's per-request wall time.
+
+Eight main paths are counted: serving (phases 3-4), training (phase 5's
 steps), fused training (phase 6's steps), MoE training (phase 8's
 steps), ViT and ResNet training (phases 9-10, which launch no
-hand-written kernel) and GPT serving (phase 7's timed engine runs, which
-launch none either; it runs after phase 11). Every launch count is
+hand-written kernel), GPT serving (phase 7's timed engine runs, which
+launch none either; it runs after phase 11) and disagg (phase 12's raw
+run, none either: the driver's counts, zeroed just before it, and each
+stage's, which start at zero with its process). Every launch count is
 zeroed just before each and read just after it; the kernel comparisons
 of phases 2 and 11, the gradient checks and phase 7's dense reference
 forward do not count.
@@ -448,6 +477,26 @@ SPLIT_STEPS = 20
 #   each way; the order alternates from pair to pair (off first, then on
 #   first), so that neither mode always runs first.
 GPT_SERVING_PAIRS = 4
+# Phase 12, disaggregated GPT-2 small serving: a PrefillStage actor and a
+# DecodeStage actor of the port's runtime, each in its own worker process
+# on the card, joined by a two-stage compiled graph (DisaggLLM), at the
+# engine shape below (the prefill buckets are the prefill stage's own).
+# DISAGG_REQUESTS prompts of DISAGG_PROMPT_LEN tokens drawn from SEED,
+# MAX_TOKENS greedy tokens each, one request at a time, against the
+# in-process LLMEngine on the same weights: the streams must be equal.
+# The raw KV of a prompt is n_layer * 2 * blocks * block_size * d_model * 2
+# bytes in bf16: 7 blocks (112 tokens, 4,128,768 B) fit the graph's 4 MiB
+# channel, 8 (113-128 tokens, 4,718,592 B) must raise ChannelFullError.
+DISAGG_MODEL = "gpt2-small"
+DISAGG_BLOCK = 16
+DISAGG_ENGINE = dict(max_batch=8, num_blocks=256, max_blocks_per_seq=16,
+                     prefill_buckets=(16, 32, 64, 128))
+DISAGG_REQUESTS = 8
+DISAGG_PROMPT_LEN = (3, 112)
+DISAGG_OVER_LEN = (113, 128)
+DISAGG_CODECS = ("int8", "e4m3")
+DISAGG_CODEC_REQUESTS = 3
+DISAGG_CONTROL = "blocks in reversed order"
 
 
 class SmokeFailure(Exception):
@@ -2566,6 +2615,279 @@ def phase_gpt_serving(wrappers):
     return out
 
 
+def smi_pids():
+    """The pids nvidia-smi lists as holding a context on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return {int(line) for line in out.split() if line.strip().isdigit()}
+
+
+def disagg_prompts(vocab):
+    """DISAGG_REQUESTS prompts, then one of exactly DISAGG_PROMPT_LEN[1]
+    tokens (the largest that fits the channel) and one of
+    DISAGG_OVER_LEN tokens (over it), from SEED."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(DISAGG_PROMPT_LEN[0], DISAGG_PROMPT_LEN[1] + 1,
+                        DISAGG_REQUESTS).tolist()
+    lens += [DISAGG_PROMPT_LEN[1],
+             int(rng.integers(DISAGG_OVER_LEN[0], DISAGG_OVER_LEN[1] + 1))]
+    return [rng.integers(1, vocab, n).tolist() for n in lens]
+
+
+def run_disagg(llm, prompts):
+    """-> (token streams, finish reasons, generate() wall seconds, the
+    envelope bytes the prefill stage wrote for each request), one request
+    at a time."""
+    streams, reasons, wall, sent = [], [], [], []
+
+    def prefill_sent():
+        return llm.placement(timeout=60)["prefill"]["channel_bytes_sent"]
+
+    before = prefill_sent()
+    for p in prompts:
+        t0 = time.perf_counter()
+        out = llm.generate(p, max_tokens=MAX_TOKENS, timeout=300)
+        wall.append(time.perf_counter() - t0)
+        streams.append(out["tokens"])
+        reasons.append(out["finish_reason"])
+        after = prefill_sent()
+        sent.append(after - before)
+        before = after
+    return streams, reasons, wall, sent
+
+
+def phase_disagg(wrappers, card, device=None):
+    """GPT-2 small served disaggregated (phase 12 of the module
+    docstring). The driver's launch counts of ``wrappers`` are zeroed
+    just before the raw DisaggLLM run and read just after it; each
+    stage reports its own process's counts, which start at zero with the
+    process. ``device`` (None: the card) is for a rehearsal on the
+    CPU, where the checks of the card fail by design."""
+    import torch
+
+    t_phase = time.perf_counter()
+    import ray_tpu_torch
+    from ray_tpu_torch.cgraph.compiled import DEFAULT_CHANNEL_BYTES
+    from ray_tpu_torch.exceptions import ChannelFullError
+    from ray_tpu_torch.serve.llm import (DisaggLLM, EngineConfig,
+                                         LLMEngine, PrefillStage,
+                                         blocks_for_tokens, build_model)
+
+    model, params = build_model(DISAGG_MODEL, seed=SEED, device=device)
+    c = model.config
+    check((c.n_layer, c.d_model, c.n_head) == (12, 768, 12)
+          and c.dtype == torch.bfloat16 and params["wte"].is_cuda,
+          f"not GPT-2 small on the card: {c}")
+    *prompts, edge, over = disagg_prompts(c.vocab_size)
+    itemsize = torch.empty((), dtype=c.dtype).element_size()
+
+    def kv_bytes(p):
+        # arithmetic: the raw KV a prompt's blocks hold
+        return (c.n_layer * 2 * blocks_for_tokens(len(p), DISAGG_BLOCK)
+                * DISAGG_BLOCK * c.d_model * itemsize)
+
+    check(kv_bytes(edge) < DEFAULT_CHANNEL_BYTES < kv_bytes(over),
+          f"the size-limit prompts do not straddle the channel: "
+          f"{kv_bytes(edge)}, {kv_bytes(over)}, {DEFAULT_CHANNEL_BYTES}")
+
+    ray_tpu_torch.init(num_cpus=4)
+    out = {}
+    try:
+        # the two stages start in their worker processes (a torch import,
+        # a CUDA context, GPT-2 small's init) while this process runs the
+        # reference and the control; the thread that starts them only
+        # waits on the runtime
+        started = {}
+
+        def start_stages():
+            t0 = time.perf_counter()
+            try:
+                started["llm"] = DisaggLLM(
+                    DISAGG_MODEL, block_size=DISAGG_BLOCK,
+                    engine_config=DISAGG_ENGINE, seed=SEED, device=device)
+                started["where"] = started["llm"].placement(timeout=300)
+            except Exception as e:           # raised in this thread below
+                started["error"] = e
+            started["s"] = time.perf_counter() - t0
+
+        starter = threading.Thread(target=start_stages, daemon=True)
+        starter.start()
+
+        # the reference: the in-process engine on the same weights, one
+        # request at a time
+        t_ref = time.perf_counter()
+        engine_config = dict(DISAGG_ENGINE, block_size=DISAGG_BLOCK)
+        engine = LLMEngine(model, params, EngineConfig(**engine_config))
+        local, local_s = [], []
+        for p in prompts + [edge]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = engine.add_request(p, max_tokens=MAX_TOKENS)
+            engine.run_until_idle(timeout=600)
+            local.append(st.tokens(timeout=1))
+            local_s.append(time.perf_counter() - t0)
+            check(st.finish_reason == "length", f"in-process engine: "
+                  f"{st.finish_reason}")
+
+        # the planted control, in this process: the same engine adopts a
+        # prefill stage's blocks (the stage on the engine's own model and
+        # weights) in reversed order, request by request until a stream
+        # differs
+        pre = PrefillStage((model, params), DISAGG_BLOCK,
+                           buckets=DISAGG_ENGINE["prefill_buckets"])
+        ctl_equal = []
+        for p, want in zip(prompts, local):
+            shipped = pre.prefill({"tokens": p, "max_tokens": MAX_TOKENS})
+            st = engine.add_prefilled(
+                shipped["prompt"], {n: t.flip(1).contiguous()
+                                    for n, t in shipped["kv"].items()},
+                shipped["first_token"], max_tokens=MAX_TOKENS)
+            engine.run_until_idle(timeout=600)
+            ctl_equal.append(st.tokens(timeout=1) == want)
+            if not ctl_equal[-1]:
+                break
+        print(f"[disagg] control '{DISAGG_CONTROL}': streams equal "
+              f"{ctl_equal} (stops at the first that differs)")
+        check(not all(ctl_equal), f"control '{DISAGG_CONTROL}' passes the "
+              f"stream-equality check")
+        engine.pool.check_leaks()
+        ref_s = time.perf_counter() - t_ref
+        del engine, pre, model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        starter.join(timeout=600)
+        check(not starter.is_alive(), "the stages did not start in 600 s")
+        if "error" in started:
+            raise started["error"]
+        llm, where, start_s = started["llm"], started["where"], started["s"]
+        on_card = smi_pids()
+        driver_listed = os.getpid() in on_card
+        print(f"[disagg] stages up in {start_s:.1f} s, started beside "
+              f"the reference and the control ({ref_s:.1f} s): {where}; "
+              f"nvidia-smi compute pids {sorted(on_card)} (driver "
+              f"{os.getpid()} {'listed' if driver_listed else 'not listed'})")
+        for stage, w in where.items():
+            check(w["device"].startswith("cuda")
+                  and w["memory_allocated"] > 0,
+                  f"the {stage} stage is not on the card: {w}")
+            if driver_listed:
+                # nvidia-smi sees this process's pid namespace
+                check(w["pid"] in on_card,
+                      f"the {stage} stage's pid {w['pid']} holds no "
+                      f"context on the card: {sorted(on_card)}")
+        check(where["prefill"]["pid"] != where["decode"]["pid"]
+              and os.getpid() not in (where["prefill"]["pid"],
+                                      where["decode"]["pid"]),
+              f"the stages do not run in two worker processes: {where}")
+
+        for f in wrappers:                   # the disagg path starts here
+            f.launches = 0
+        raw, reasons, raw_s, sent = run_disagg(llm, prompts + [edge])
+        launches = {f.__name__: f.launches for f in wrappers}
+        stage_launches = {stage: w["kernel_launches"] for stage, w in
+                          llm.placement(timeout=60).items()}
+        stats = llm.stats()
+        print(f"[disagg] hand-written kernel launches of the raw run: "
+              f"driver {launches}, stages {stage_launches}")
+        for counts in [launches, *stage_launches.values()]:
+            check(not any(counts.values()),
+                  "the disagg path launched a hand-written kernel: its "
+                  "paged prefill and decode are plain PyTorch")
+        equal = [a == b for a, b in zip(raw, local)]
+        print(f"[disagg] raw KV: streams equal to the in-process engine's "
+              f"for {sum(equal)} of {len(equal)} requests (prompts "
+              f"{[len(p) for p in prompts + [edge]]} tokens); decode "
+              f"stats {stats}")
+        check(all(equal), f"disaggregated streams differ from the "
+              f"in-process engine's: {equal}")
+        check(all(r == "length" for r in reasons), f"finish {reasons}")
+        check(stats["kv_blocks_used"] == 0,
+              f"the decode stage holds {stats['kv_blocks_used']} blocks")
+        raw_kv = [kv_bytes(p) for p in prompts + [edge]]
+        check(all(kv <= e < kv + 16384 for kv, e in zip(raw_kv, sent)),
+              f"the prefill stage's envelopes {sent} do not carry the raw "
+              f"KV {raw_kv} once")
+
+        t0 = time.perf_counter()
+        try:
+            llm.generate(over, max_tokens=MAX_TOKENS, timeout=120)
+            raised = None
+        except ChannelFullError as e:
+            raised = e
+        over_s = time.perf_counter() - t0
+        print(f"[disagg] {len(over)}-token prompt ({kv_bytes(over)} B of "
+              f"KV) over the {DEFAULT_CHANNEL_BYTES} B channel: "
+              f"{type(raised).__name__} after {over_s:.2f} s: {raised}")
+        check(raised is not None, "an over-size KV shipment did not raise "
+              "ChannelFullError")
+
+        # the KV block-quantized on the wire: the graph compiled again
+        # on the same two stages, as DisaggLLM(codec=...) compiles it
+        codec_out = {}
+        few = prompts[:DISAGG_CODEC_REQUESTS]
+        t_codec = time.perf_counter()
+        for codec in DISAGG_CODECS:
+            llm.compile(codec)
+            streams, reasons, _, codec_sent = run_disagg(llm, few)
+            firsts = all(a[0] == b[0] for a, b in zip(streams, raw))
+            same = sum(x == y for a, b in zip(streams, raw)
+                       for x, y in zip(a[1:], b[1:]))
+            total = sum(len(b) - 1 for b in raw[:len(few)])
+            codec_out[codec] = dict(first_tokens_equal=firsts,
+                                    decode_tokens_equal=same,
+                                    decode_tokens=total,
+                                    envelope_bytes=codec_sent)
+            print(f"[disagg] codec {codec}: first tokens equal to the raw "
+                  f"run's: {firsts}; decode tokens equal {same} of {total} "
+                  f"({same / total:.4f}); finish {set(reasons)}; envelope "
+                  f"bytes {codec_sent} (raw {sent[:len(few)]})")
+            check(firsts, f"codec {codec}: a first token differs from the "
+                  f"raw run's (it is taken before the wire)")
+            check(all(r == "length" for r in reasons),
+                  f"codec {codec}: finish {reasons}")
+            # one byte an element and an f32 scale per 256, against
+            # bf16's two: 0.508 of the raw envelope
+            check(all(e < 0.55 * r for e, r in zip(codec_sent, sent)),
+                  f"codec {codec}: envelopes {codec_sent} not under 0.55 "
+                  f"of the raw run's {sent}")
+        check(llm.stats()["kv_blocks_used"] == 0,
+              "the decode stage holds blocks after the codec runs")
+        codec_s = time.perf_counter() - t_codec
+        t_down = time.perf_counter()
+        llm.shutdown()
+    finally:
+        ray_tpu_torch.shutdown()
+    down_s = time.perf_counter() - t_down
+
+    def p50max(xs):
+        return statistics.median(xs), max(xs)
+
+    print(f"[disagg] {card}: per-request generate() wall "
+          f"{[round(t * 1e3, 1) for t in raw_s]} ms (p50 "
+          f"{p50max(raw_s)[0] * 1e3:.1f}, max {p50max(raw_s)[1] * 1e3:.1f}); "
+          f"KV envelope bytes the prefill stage wrote {sent} (p50 "
+          f"{p50max(sent)[0]:.0f}, max {p50max(sent)[1]}; the raw KV "
+          f"they carry {raw_kv}); in-process engine per-request wall "
+          f"{[round(t * 1e3, 1) for t in local_s]} ms (p50 "
+          f"{p50max(local_s)[0] * 1e3:.1f}, max "
+          f"{p50max(local_s)[1] * 1e3:.1f}); the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s: the reference and the "
+          f"control {ref_s:.1f}, the raw run {sum(raw_s):.1f} (generate), "
+          f"the codec runs {codec_s:.1f}, shutdown {down_s:.1f}")
+    out.update(start_s=start_s, placement=where, launches=launches,
+               stage_launches=stage_launches, streams_equal=equal,
+               over_raised=type(raised).__name__, over_s=over_s,
+               control_equal=ctl_equal, codecs=codec_out,
+               wall_s=raw_s, envelope_bytes=sent, local_wall_s=local_s,
+               reference_s=ref_s, codec_s=codec_s, shutdown_s=down_s,
+               card=card)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2654,6 +2976,9 @@ def main() -> int:
         with torch.no_grad():
             head_dims = phase_head_dims()
             gpt_serving = phase_gpt_serving(wrappers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        disagg = phase_disagg(wrappers, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2666,15 +2991,24 @@ def main() -> int:
           f"the fused training steps, {moe_training['peak_memory_gib']:.1f} "
           f"GiB in the MoE training steps, {vit['peak_memory_gib']:.1f} GiB "
           f"in the ViT-B/16 steps")
+
+    def disagg_launches(wrapper):
+        # the driver's count and both stages' counts on the disagg path
+        return disagg["launches"][wrapper.__name__] + sum(
+            counts[wrapper.__name__]
+            for counts in disagg["stage_launches"].values())
+
     fwd_launches = dict(serving=serving_launches,
                         training=training["launches"]["flash_fwd"],
                         training_fused=training_fused["launches"]["flash_fwd"],
                         moe_training=moe_training["launches"]["flash_fwd"],
                         gpt_serving=gpt_serving["launches"][
-                            flash_attention_fwd.__name__])
+                            flash_attention_fwd.__name__],
+                        disagg=disagg_launches(flash_attention_fwd))
     bwd_launches = dict(training=training["launches"]["flash_bwd"],
                         training_fused=training_fused["launches"]["flash_bwd"],
-                        moe_training=moe_training["launches"]["flash_bwd"])
+                        moe_training=moe_training["launches"]["flash_bwd"],
+                        disagg=disagg_launches(flash_attention_bwd))
 
     def bf16_max_err(rows):
         return max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
@@ -2722,7 +3056,10 @@ def main() -> int:
             "replaces": [replaces],
             "launches": training_fused["launches"][name],
             "launches_by_path": {
-                "training_fused": training_fused["launches"][name]},
+                "training_fused": training_fused["launches"][name],
+                "disagg": disagg_launches(
+                    ln_matmul_fwd if name == "ln_matmul"
+                    else matmul_residual_fwd)},
             "max_abs_err": bf16_max_err(rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -2738,6 +3075,7 @@ def main() -> int:
                "training_fused": training_fused,
                "moe_training": moe_training, "vit": vit, "resnet": resnet,
                "head_dims": head_dims, "gpt_serving": gpt_serving,
+               "disagg": disagg,
                "fused_backward_products": fused_bwd, "lm_head": lm_head}
     print(f"[summary] {json.dumps(summary)}")
     print(card)

@@ -1,4 +1,4 @@
-"""ray_tpu_torch.models — counterpart of ray_tpu.models: the six model
+"""ray_tpu_torch.models — counterpart of ray_tpu/models: the six model
 families it exports, GPT-2 (training and paged serving), Llama (dense
 forward and paged serving), ResNet, ViT, the MLP and the Mixtral-style
 MoE, each with a loader of the JAX package's parameters from numpy."""

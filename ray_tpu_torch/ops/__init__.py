@@ -1,4 +1,4 @@
-"""ray_tpu_torch.ops — counterpart of ray_tpu.ops.
+"""ray_tpu_torch.ops — counterpart of ray_tpu/ops.
 
 - flash_attention (differentiable), flash_attention_fwd and
   flash_attention_bwd: the forward and the backward are CUDA kernels

@@ -28,8 +28,9 @@ slots, because those shapes are part of what the JAX engine computes.
     stream = engine.add_request([1, 5, 9], max_tokens=32)
     for tok in stream: ...               # sync; `async for` also works
 
-Not ported yet (each raises or is absent): tensor parallelism (``tp``),
-disaggregated intake (``add_prefilled``), metrics, tracing, the flight
+Disaggregated intake (``add_prefilled``) adopts KV blocks that a prefill
+stage computed elsewhere (disagg.py). Not ported yet (each raises or is
+absent): tensor parallelism (``tp``), metrics, tracing, the flight
 recorder and ``profile()``.
 """
 from __future__ import annotations
@@ -268,9 +269,60 @@ class LLMEngine:
             self._waiting.append(req)
         return stream
 
-    def add_prefilled(self, *args, **kwargs) -> TokenStream:
-        raise NotImplementedError("disaggregated prefill intake is not "
-                                  "ported yet")
+    def add_prefilled(self, prompt: Sequence[int], kv_blocks: Dict[str, Any],
+                      first_token: int, max_tokens: int = 16,
+                      eos_id: Any = "__default__",
+                      timeout: float = 60.0) -> TokenStream:
+        """Disaggregated-prefill intake: the prompt's KV was computed by a
+        prefill stage (disagg.py) and arrives as block-shaped host arrays
+        or tensors k/v [L, nb, block_size, KH, hd]; this engine copies
+        them into freshly allocated pool blocks on its device, in the
+        cache's dtype, and the sequence enters decode directly with
+        ``first_token`` emitted — no local prefill pass."""
+        prompt = [int(t) for t in prompt]
+        nb = int(kv_blocks["k"].shape[1])
+        if nb != blocks_for_tokens(len(prompt), self.config.block_size):
+            raise ValueError(
+                f"shipped {nb} blocks for a {len(prompt)}-token prompt "
+                f"(block_size {self.config.block_size})")
+        rid = f"req-{next(self._ids)}"
+        stream = TokenStream(rid)
+        req = Request(rid, prompt, int(max_tokens),
+                      self.config.eos_id if eos_id == "__default__"
+                      else eos_id,
+                      stream, time.perf_counter())
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._lock, torch.no_grad():
+                # evicting alloc: a prefix-cached decode stage would
+                # otherwise wedge once cache residency drains the free
+                # list (nothing here runs _admit's eviction path)
+                blocks = self._alloc_with_evict(nb)
+                slot = self._free_slots.pop() if (
+                    blocks is not None and self._free_slots) else None
+                if blocks is not None and slot is None:
+                    self.pool.free(blocks)
+                    blocks = None
+                if blocks is not None:
+                    idx = torch.tensor(blocks, device=self.device)
+                    for name, pool in self._cache.items():
+                        src = kv_blocks[name]
+                        if not isinstance(src, torch.Tensor):
+                            src = torch.tensor(np.asarray(src))  # a copy
+                        pool[:, idx] = src.to(self.device, pool.dtype)
+                    seq = _Sequence(req, slot, blocks, len(prompt),
+                                    int(first_token))
+                    self._running.append(seq)
+                    # TTFT ends at intake: the first token came with
+                    # the shipment
+                    req.first_token_at = time.perf_counter()
+                    self._emit(seq, int(first_token))
+                    return stream
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"{self.name}: no capacity for prefilled sequence "
+                    f"({nb} blocks) after {timeout}s")
+            time.sleep(0.005)
 
     # -- scheduler ------------------------------------------------------------
 

@@ -8,9 +8,23 @@
 - The kernel wrappers and the kernel build hold no ``try``: on a CUDA
   tensor a wrapper launches its kernel or raises, and a failed build
   raises; nothing gives way to the plain version.
+- No string literal names a module of ``ray_tpu``: a module path in a
+  string (``"-m", "ray_tpu.core.worker_main"``) would start the JAX
+  package's code where the port's was meant.
+- The port imports no third-party module beyond what the machine with
+  the card has (torch, numpy, triton, scipy, einops) and what it carries
+  itself (``ray_tpu_torch._vendor``): no ``ml_dtypes``, no site
+  ``cloudpickle``.
+- A worker process of the port's runtime starts without torch: the
+  package loads it only when a task needs it.
+- No string literal names a path under ``/tmp``: what the port writes
+  (session directories and their sockets, spill, logs, caches) goes under
+  ``tempfile.gettempdir()``, so a caller's ``TMPDIR`` holds it and two
+  checkouts run side by side never share it.
 """
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -22,6 +36,9 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
+# the third-party packages of the machine with the card that the port may
+# import; anything else must be the standard library or the port itself
+THIRD_PARTY = ("torch", "numpy", "triton", "scipy", "einops")
 NO_TRY_FILES = ("ray_tpu_torch/ops/flash_attention.py",
                 "ray_tpu_torch/ops/fused.py",
                 "ray_tpu_torch/ops/_build.py")
@@ -56,12 +73,19 @@ def test_port_files_exist():
                  "ray_tpu_torch/serve/llm/prefix_cache.py",
                  "ray_tpu_torch/models/moe.py", "ray_tpu_torch/models/vit.py",
                  "ray_tpu_torch/models/resnet.py",
-                 "ray_tpu_torch/models/mlp.py", *NO_TRY_FILES):
+                 "ray_tpu_torch/models/mlp.py",
+                 "ray_tpu_torch/core/worker_main.py",
+                 "ray_tpu_torch/cgraph/compiled.py",
+                 "ray_tpu_torch/serve/llm/disagg.py",
+                 "ray_tpu_torch/_vendor/cloudpickle/cloudpickle.py",
+                 *NO_TRY_FILES):
         assert want in names
     for kernel in ("flash_fwd.cu", "flash_bwd.cu", "ln_matmul.cu",
                    "mm_res.cu", "tile_gemm.cuh", "hopper.cuh",
                    "hopper_gemm.cuh"):
         assert (ROOT / "ray_tpu_torch" / "csrc" / kernel).exists()
+    assert (ROOT / "ray_tpu_torch" / "_vendor" / "cloudpickle" /
+            "LICENSE").exists()
 
 
 def test_fused_kernels_are_hand_written_wgmma_and_tma():
@@ -132,3 +156,127 @@ def test_chip_smoke_fails_without_a_card_or_the_port(where, tmp_path):
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+_DOTTED = re.compile(r"(?<![\w.])ray_tpu(?:\.[A-Za-z_]\w*)*")
+
+
+def _is_reference_module(dotted: str) -> bool:
+    path = ROOT.joinpath(*dotted.split("."))
+    return path.with_suffix(".py").exists() or (path / "__init__.py").exists()
+
+
+def reference_modules_named(tree: ast.AST):
+    """(line, name) for each string literal that names a module of the
+    JAX package: the whole string is ``ray_tpu``, or it holds a dotted
+    ``ray_tpu.x[.y]`` whose prefix past ``ray_tpu`` is a module there."""
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Constant)
+                and isinstance(node.value, str)):
+            continue
+        if node.value.strip() == "ray_tpu":
+            yield node.lineno, node.value
+            continue
+        for m in _DOTTED.finditer(node.value):
+            parts = m.group(0).split(".")
+            if any(_is_reference_module(".".join(parts[:i]))
+                   for i in range(2, len(parts) + 1)):
+                yield node.lineno, m.group(0)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_port_strings_name_no_reference_module(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = list(reference_modules_named(tree))
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+@pytest.mark.parametrize("source,bad", [
+    ('cmd = [sys.executable, "-m", "ray_tpu.core.worker_main"]', True),
+    ('name = "ray_tpu"', True),
+    ('"""counterpart of ray_tpu.serve.llm"""', True),
+    ('cmd = ["-m", "ray_tpu_torch.core.worker_main"]', False),
+    ('"""counterpart of ray_tpu/serve/llm/engine.py:409"""', False),
+    ('msg = "call ray_tpu_torch.init() first"', False),
+    ('metric = "ray_tpu_task_events_total"', False),
+])
+def test_string_rule_catches_what_it_should(source, bad):
+    assert bool(list(reference_modules_named(ast.parse(source)))) == bad
+
+
+def _outside_module(module: str) -> bool:
+    top = module.split(".")[0]
+    return not (top in sys.stdlib_module_names or top in THIRD_PARTY
+                or top == "ray_tpu_torch" or top == "__future__")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_port_imports_only_what_the_card_machine_has(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(line, mod) for line, mod in imported_modules(tree)
+           if _outside_module(mod)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("source,bad", [
+    ("import ml_dtypes", True),
+    ("import cloudpickle", True),
+    ("from cloudpickle import CloudPickler", True),
+    ("from .._vendor import cloudpickle", False),
+    ("from ray_tpu_torch._vendor import cloudpickle", False),
+    ("import torch, numpy, pickle", False),
+])
+def test_third_party_rule_catches_what_it_should(source, bad):
+    found = [m for _, m in imported_modules(ast.parse(source))
+             if _outside_module(m)]
+    assert bool(found) == bad
+
+
+def test_worker_main_starts_without_torch():
+    """A worker starts as ``python -S -m ray_tpu_torch.core.worker_main``
+    with the parent's path in PYTHONPATH: importing its module (and with
+    it the package) loads neither torch nor JAX nor the JAX package."""
+    code = ("import sys, ray_tpu_torch.core.worker_main; print(sorted("
+            "m for m in ('torch', 'jax', 'ray_tpu', 'cloudpickle', "
+            "'ml_dtypes') if m in sys.modules))")
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join([str(ROOT)] + sys.path[1:])}
+    out = subprocess.run([sys.executable, "-S", "-c", code], env=env,
+                         cwd=str(ROOT.parent), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+_TMP = re.compile(r"(?<![\w.])/tmp(?![\w.-])")
+
+
+def fixed_tmp_paths(tree: ast.AST):
+    """(line, string) for each string literal that names /tmp or a path
+    under it."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and _TMP.search(node.value):
+            yield node.lineno, node.value
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_port_strings_name_no_fixed_tmp_path(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = list(fixed_tmp_paths(tree))
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+@pytest.mark.parametrize("source,bad", [
+    ('d = "/tmp/ray_tpu_torch"', True),
+    ('d = os.path.join("/tmp", "x")', True),
+    ('spill = "/tmp/ray_tpu_spill"', True),
+    ('d = os.path.join(tempfile.gettempdir(), "ray_tpu_torch_spill")', False),
+    ('out = path + ".tmp"', False),
+    ('name = "session.tmp/x"', False),
+])
+def test_tmp_rule_catches_what_it_should(source, bad):
+    assert bool(list(fixed_tmp_paths(ast.parse(source)))) == bad
