@@ -129,17 +129,44 @@ Phases, each of which exits non-zero on failure:
               envelope bytes the prefill stage wrote for it (its
               ray_tpu_cgraph_channel_bytes_total, per codec) beside the
               in-process engine's per-request wall time.
+13. pipeline — ray_tpu_torch.init, then GPT-2 small (as phase 5, seed 0)
+              split by gpt_pipeline_stages into 2 stage actors on the card,
+              each in its own worker process, trained by
+              CompiledPipelineEngine (1F1B over 4 microbatches of 2
+              sequences of 1024 tokens, the tied wte/head gradients
+              exchanged, GPT-2's AdamW): 1 warm-up and 3 timed steps on one
+              batch, while this process runs run_reference_1f1b on the
+              same chunks and batches beside the stages' start-up. The
+              step-0 loss is ln(50304) + 768 * 0.02^2 / 2 and GPT.loss on
+              the same 8 sequences; the loss falls; the losses and final
+              params equal the reference's bit for bit; a planted control
+              (the reference without the tied exchange) must not; each
+              stage launches flash_fwd and flash_bwd 24 times a step (6
+              layers x 4 microbatches), read from the stage processes.
+              Then the ZeRO dp update: dp=2 replicas of the same split
+              (four stage processes an engine), 2 steps under SGD with
+              momentum with zero_update on, off, and a planted control
+              (the shard update without its 1/dp mean), three engines
+              side by side: step-0 losses equal, the ZeRO step-1 loss
+              within its limit of the replicated one's and the control's
+              not, 0.4-0.62 of the replicated optimizer bytes. Prints the
+              step wall p50 and tokens/s, the reference's step wall, each
+              stage's forward, backward and update ms, the bytes on each
+              edge a step, each stage's peak memory, and the phase's
+              seconds.
 
-Eight main paths are counted: serving (phases 3-4), training (phase 5's
+Nine main paths are counted: serving (phases 3-4), training (phase 5's
 steps), fused training (phase 6's steps), MoE training (phase 8's
 steps), ViT and ResNet training (phases 9-10, which launch no
 hand-written kernel), GPT serving (phase 7's timed engine runs, which
-launch none either; it runs after phase 11) and disagg (phase 12's raw
+launch none either; it runs after phase 11), disagg (phase 12's raw
 run, none either: the driver's counts, zeroed just before it, and each
-stage's, which start at zero with its process). Every launch count is
-zeroed just before each and read just after it; the kernel comparisons
-of phases 2 and 11, the gradient checks and phase 7's dense reference
-forward do not count.
+stage's, which start at zero with its process) and pipeline (phase 13's
+engine steps: the driver's counts, zeroed just before them, and each
+stage's). Every launch count is zeroed just before each and read just
+after it; the kernel comparisons of phases 2 and 11, the gradient
+checks, phase 7's dense reference forward and phase 13's in-process
+reference do not count.
 The last three lines are the card (as nvidia-smi prints it), the kernels
 JSON line and the result JSON line. Without a CUDA device, or without the
 ray_tpu_torch package beside this file, the script fails before printing
@@ -321,6 +348,12 @@ BWD_CHECKS = FWD_CHECKS + [
     ("bf16 hd128", (1, 256, 4, 128), 256, "bfloat16", True),
 ] + EDGE_CHECKS
 FWD_CHECKS += EDGE_CHECKS
+# the shape phase 13's stages give the kernels (microbatches of 2
+# sequences), appended last so the checks above keep their seeds
+PIPE_CHECK = ("pipeline microbatch", (2, 1024, 12, 64), 1024, "bfloat16",
+              True)
+FWD_CHECKS.append(PIPE_CHECK)
+BWD_CHECKS.append(PIPE_CHECK)
 # Fused block entry and exit at GPT-2 small's training shapes (B*S = 40960
 # rows): (label, kernel, N, K, F). ln_matmul: LN1 + QKV, LN2 + FC; mm_res:
 # attention projection + residual, MLP out + residual.
@@ -497,10 +530,73 @@ DISAGG_OVER_LEN = (113, 128)
 DISAGG_CODECS = ("int8", "e4m3")
 DISAGG_CODEC_REQUESTS = 3
 DISAGG_CONTROL = "blocks in reversed order"
+# Pipeline-parallel training (phase 13): GPT-2 small split by
+# gpt_pipeline_stages into PIPE_STAGES stage actors on the card, 1F1B over
+# PIPE_MICROBATCHES microbatches of PIPE_MB sequences of TRAIN_SEQ tokens,
+# GPT-2's AdamW; PIPE_WARMUP + PIPE_STEPS steps on one batch, held bit for
+# bit to run_reference_1f1b in this process (a planted control, the same
+# reference without the tied exchange, must differ). The step-0 loss is
+# held to TOL_LOSS0 of ln(V) + d_model * 0.02^2 / 2 and to
+# TOL_PIPE_FULL_LOSS of GPT.loss over the same sequences (the bound of
+# tests/test_pipeline_cgraph.py:188-189). Every channel carries
+# PIPE_CHANNEL_SLACK bytes over the largest hop, the tied wte gradient
+# (f32 [V, d_model]). The whole stage split's launches: flash_fwd and
+# flash_bwd once per layer and microbatch.
+PIPE_STAGES, PIPE_MICROBATCHES, PIPE_MB = 2, 4, 2
+PIPE_WARMUP, PIPE_STEPS = 1, 3
+TOL_PIPE_FULL_LOSS = 1e-3
+PIPE_CHANNEL_SLACK = 1 << 20
+PIPE_CONTROL = "reference without the tied exchange"
+# The ZeRO dp update on the card: PIPE_DP replicas of the same split
+# (PIPE_STAGES * PIPE_DP stage processes), PIPE_DP_MICROBATCHES each (the
+# same sequences), PIPE_DP_STEPS steps with zero_update on and off, and a
+# planted control (the ZeRO update without its 1/dp mean), three engines
+# side by side. Under SGD with momentum: Adam's update does not change
+# when every gradient is scaled, so a skipped mean would not show in its
+# losses. The step-0 losses must be equal; the step-1 loss of the ZeRO
+# run must lie within TOL_ZERO_LOSS1 (absolute) of the replicated run's,
+# and the control's must not; each ZeRO replica holds 0.4-0.62 of the
+# replicated optimizer bytes (tests/test_pipeline_cgraph.py:269-271).
+PIPE_DP, PIPE_DP_MICROBATCHES, PIPE_DP_STEPS = 2, 2, 2
+PIPE_DP_LR, PIPE_DP_MOMENTUM = 0.1, 0.9
+TOL_ZERO_LOSS1 = 1e-4
+ZERO_OPT_BYTES = (0.4, 0.62)
+ZERO_CONTROL = "ZeroUpdater without the 1/dp mean"
+# the object store holds the channels' segments (sparse until written)
+# and the dp collectives' rows
+PIPE_OBJECT_STORE = 48 << 30
 
 
 class SmokeFailure(Exception):
     pass
+
+
+class SkipMeanSGD:
+    """The ZeRO check's planted control, as an optimizer factory: its SGD
+    multiplies every gradient by ``dp`` before the step, so a ZeroUpdater
+    built on it updates its shard with the sum of the replicas' gradients
+    — the update of a ZeroUpdater that skips the 1/dp mean. Picklable: the
+    stage processes build it."""
+
+    def __init__(self, dp, **sgd):
+        self.dp = dp
+        self.sgd = sgd
+
+    def __call__(self, params):
+        import torch
+
+        dp = self.dp
+
+        class SumSGD(torch.optim.SGD):
+            @torch.no_grad()
+            def step(self, closure=None):
+                for group in self.param_groups:
+                    for p in group["params"]:
+                        if p.grad is not None:
+                            p.grad.mul_(dp)
+                return super().step(closure)
+
+        return SumSGD(params, **self.sgd)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2888,6 +2984,334 @@ def phase_disagg(wrappers, card, device=None):
     return out
 
 
+def stage_op_ms(report):
+    """{method: ms} of one stage's ops in the step its report closes (the
+    executor's per-op wall spans, host clock; a CUDA stage's ops end in a
+    copy to the host, its update in a synchronize)."""
+    out = {}
+    for op in (report.get("perf") or {}).get("ops", ()):
+        out[op["method"]] = out.get(op["method"], 0.0) \
+            + (op["t1"] - op["t0"]) * 1e3
+    return out
+
+
+def first_difference(got, want):
+    """(index, name) of the first leaf where two chunk-param lists differ
+    bitwise, with its max abs difference, or None."""
+    from ray_tpu_torch.parallel.zero import tree_flatten
+
+    for g, (a, b) in enumerate(zip(got, want)):
+        names = [f"chunk {g} {k}" for k in _leaf_names(a)]
+        for name, x, y in zip(names, tree_flatten(a)[0],
+                              tree_flatten(b)[0]):
+            y = y.to(x.device)
+            if not (x.shape == y.shape and x.dtype == y.dtype
+                    and bool((x == y).all())):
+                return name, float((x.float() - y.float()).abs().max())
+    return None
+
+
+def _leaf_names(tree, prefix=""):
+    """The leaves' names of a nested dict, in tree_flatten order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def phase_pipeline(wrappers, card, device=None):
+    """Pipeline-parallel GPT-2 small training over compiled graphs (phase
+    13 of the module docstring). The driver's launch counts of
+    ``wrappers`` are zeroed just before the engine's steps and read just
+    after them; each stage reports its own process's counts, which start
+    at zero with the process. ``device`` (None: the card) is for a
+    rehearsal on the CPU, where the checks of the card fail by design."""
+    import functools
+
+    import torch
+
+    t_phase = time.perf_counter()
+    import ray_tpu_torch
+    from ray_tpu_torch.models import GPT, GPTConfig
+    from ray_tpu_torch.models.gpt import gpt_pipeline_stages
+    from ray_tpu_torch.train import (CompiledPipelineEngine,
+                                     run_reference_1f1b)
+    from ray_tpu_torch.train.pipeline_cgraph import channel_bytes_by_edge
+
+    dev = torch.device("cuda" if device is None else device)
+    c = GPTConfig.small(use_flash=True)
+    check((c.n_layer, c.d_model, c.n_head, c.head_dim, c.padded_vocab,
+           c.dtype) == (12, 768, 12, 64, 50304, torch.bfloat16),
+          f"not GPT-2 small: {c}")
+    model = GPT(c)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    batch = PIPE_MICROBATCHES * PIPE_MB
+    tokens = torch.randint(0, c.vocab_size, (batch, TRAIN_SEQ),
+                           generator=gen, device=dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    mbs, tgts = list(tokens.split(PIPE_MB)), list(targets.split(PIPE_MB))
+    fns, sp, tied = gpt_pipeline_stages(model, params, PIPE_STAGES)
+    with torch.no_grad():
+        full_loss = float(model.loss(params, tokens, targets))
+    tx = functools.partial(torch.optim.AdamW, lr=TRAIN_LR,
+                           weight_decay=TRAIN_WD)
+    channel = c.padded_vocab * c.d_model * 4 + PIPE_CHANNEL_SLACK
+    steps = PIPE_WARMUP + PIPE_STEPS
+    counters = {"flash_fwd": wrappers[0], "flash_bwd": wrappers[1]}
+    per_step_want = c.n_layer // PIPE_STAGES * PIPE_MICROBATCHES
+
+    ray_tpu_torch.init(num_cpus=16, object_store_memory=PIPE_OBJECT_STORE)
+    try:
+        # the two stages start in their worker processes (a torch import,
+        # a CUDA context, their chunk's params through the object store)
+        # while this process runs the reference and the control
+        started = {}
+
+        def start_engine():
+            t0 = time.perf_counter()
+            try:
+                started["engine"] = CompiledPipelineEngine(
+                    fns, sp, tx, num_microbatches=PIPE_MICROBATCHES,
+                    tied=tied, channel_bytes=channel, setup_timeout=600,
+                    device=device)
+            except Exception as e:           # raised in this thread below
+                started["error"] = e
+            started["s"] = time.perf_counter() - t0
+
+        starter = threading.Thread(target=start_engine, daemon=True)
+        starter.start()
+        ref_losses, ref_params = run_reference_1f1b(
+            fns, sp, tx, [(mbs, tgts)] * steps, tied=tied, device=device)
+        ctl_losses, _ = run_reference_1f1b(
+            fns, sp, tx, [(mbs, tgts)] * 2, device=device)
+        starter.join(timeout=900)
+        check(not starter.is_alive(), "the stages did not start in 900 s")
+        if "error" in started:
+            raise started["error"]
+        engine, start_s = started["engine"], started["s"]
+        try:
+            where0 = engine.placement()[0]
+            for f in wrappers:               # the pipeline path starts here
+                f.launches = 0
+            sent0 = channel_bytes_by_edge()
+            losses, walls, reports, wheres = [], [], [], [where0]
+            for _ in range(steps):
+                losses.append(engine.step(mbs, tgts, timeout=600))
+                walls.append(engine.last_step_s)
+                reports.append(engine.last_reports)
+                wheres.append(engine.placement()[0])
+            driver_launches = {f.__name__: f.launches for f in wrappers}
+            sent1 = channel_bytes_by_edge()
+            where1 = wheres[-1]
+            new_params = engine.get_params()
+        finally:
+            engine.shutdown()
+        # the reference's step time, with nothing else on the card: the
+        # timed steps' count, on copies of the same chunks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_reference_1f1b(fns, sp, tx, [(mbs, tgts)] * PIPE_STEPS,
+                           tied=tied, device=device)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        on_card = all(w["device"].startswith("cuda") for w in where1)
+        pids = [w["pid"] for w in where1]
+        print(f"[pipeline] {PIPE_STAGES} stages up in {start_s:.1f} s "
+              f"beside the reference: pids {pids} (driver {os.getpid()}), "
+              f"devices {[w['device'] for w in where1]}, params "
+              f"{[w['param_bytes'] for w in where1]} B; channel slot "
+              f"{channel} B")
+        check(on_card and all(w["memory_allocated"] > 0 for w in where1),
+              f"a stage is not on the card: {where1}")
+        check(len(set(pids)) == PIPE_STAGES and os.getpid() not in pids,
+              f"the stages do not run in {PIPE_STAGES} worker processes: "
+              f"{pids}")
+
+        # launches: each stage's own counters, read between the steps
+        stage_launches = [w["kernel_launches"] for w in where1]
+        per_step = [[{n: now["kernel_launches"][f.__name__]
+                      - was["kernel_launches"][f.__name__]
+                      for n, f in counters.items()}
+                     for was, now in zip(w0, w1)]
+                    for w0, w1 in zip(wheres, wheres[1:])]
+        print(f"[pipeline] flash launches per step and stage "
+              f"{per_step[-1]} (every step: "
+              f"{all(s == per_step[-1] for s in per_step)}); driver "
+              f"{driver_launches}; stages since start {stage_launches}")
+        check(all(d == {n: per_step_want for n in counters}
+                  for step in per_step for d in step),
+              f"launches per step and stage {per_step}, expected "
+              f"{per_step_want} of each flash kernel")
+        check(not any(driver_launches.values()),
+              f"the driver launched {driver_launches} on the pipeline path")
+        check(not any(s[f.__name__] for s in stage_launches
+                      for f in wrappers[2:]),
+              f"a stage launched a fused kernel: {stage_launches}")
+
+        # the trajectory, bit for bit, and the planted control
+        diff = first_difference(new_params, ref_params)
+        first_step = next((i for i, (a, b) in enumerate(
+            zip(losses, ref_losses)) if a != b), None)
+        ctl_equal = ctl_losses == losses[:len(ctl_losses)]
+        loss0 = math.log(c.padded_vocab) + c.d_model * 0.02 ** 2 / 2
+        print(f"[pipeline] losses {losses}; reference {ref_losses}; "
+              f"equal {losses == ref_losses} (first differing step "
+              f"{first_step}); final params equal {diff is None} "
+              f"(first differing: {diff}); control '{PIPE_CONTROL}' "
+              f"{ctl_losses}: equal {ctl_equal}; GPT.loss on the same "
+              f"{batch} sequences {full_loss}; step-0 target {loss0:.4f}")
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        check(abs(losses[0] - loss0) <= TOL_LOSS0,
+              f"step-0 loss {losses[0]} is not {loss0:.4f} within "
+              f"{TOL_LOSS0}")
+        check(abs(losses[0] - full_loss) <= TOL_PIPE_FULL_LOSS,
+              f"step-0 loss {losses[0]} is not GPT.loss {full_loss} within "
+              f"{TOL_PIPE_FULL_LOSS}")
+        check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+        check(losses == ref_losses, f"the engine's losses {losses} differ "
+              f"from the reference's {ref_losses} from step {first_step}")
+        check(diff is None, f"the engine's final params differ from the "
+              f"reference's at {diff}")
+        check(not ctl_equal, f"control '{PIPE_CONTROL}' passes the "
+              f"trajectory equality")
+
+        # readings
+        timed = walls[PIPE_WARMUP:]
+        step_p50 = statistics.median(timed)
+        tokens_per_s = batch * TRAIN_SEQ / step_p50
+        last = sorted(reports[-1], key=lambda r: r["stage"])
+        before = sorted(reports[-2], key=lambda r: r["stage"])
+        op_ms = [stage_op_ms(r) for r in last]
+        # the executor's cumulative seconds a stage spent in its ops, in
+        # blocked channel reads (the bubble) and in sends, over the last
+        # step
+        split_ms = [{k: (r["perf"][f"{k}_s"] - b["perf"][f"{k}_s"]) * 1e3
+                     for k in ("exec", "bubble", "send")}
+                    for r, b in zip(last, before)]
+        edge_bytes = {}
+        for w0, w1 in zip(where0, where1):
+            for e, b in w1["channel_bytes"].items():
+                edge_bytes[e] = (b - w0["channel_bytes"].get(e, 0)) // steps
+        for e, b in sent1.items():
+            if b > sent0.get(e, 0):      # this engine's edges, not phase 12's
+                edge_bytes[e] = (b - sent0.get(e, 0)) // steps
+        peaks = [w["max_memory_allocated"] for w in where1]
+        print(f"[pipeline] {card}: step wall {[round(t * 1e3, 2) for t in walls]} "
+              f"ms (p50 of the {PIPE_STEPS} timed {step_p50 * 1e3:.2f} ms, "
+              f"{tokens_per_s:.1f} tokens/s); run_reference_1f1b in this "
+              f"process {ref_s * 1e3 / PIPE_STEPS:.2f} ms a step "
+              f"({PIPE_STEPS} steps in {ref_s:.3f} s, its copy of the "
+              f"params and its optimizer's set-up included)")
+        for i, (r, ms) in enumerate(zip(last, op_ms)):
+            print(f"[pipeline] stage {i} (last step): "
+                  + ", ".join(f"{m} {v:.2f} ms" for m, v in sorted(ms.items()))
+                  + f"; update_ms {r['update_ms']}; exec / bubble / send "
+                  + " / ".join(f"{v:.2f}" for v in split_ms[i].values())
+                  + f" ms; peak {peaks[i] / 2**30:.2f} GiB allocated")
+        print(f"[pipeline] bytes a step by edge: {dict(sorted(edge_bytes.items()))}")
+        pipeline_s = time.perf_counter() - t_phase
+        del ref_params, new_params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the ZeRO dp update: three engines side by side
+        t_dp = time.perf_counter()
+        sgd = dict(lr=PIPE_DP_LR, momentum=PIPE_DP_MOMENTUM)
+        variants = {"zero": (True, functools.partial(torch.optim.SGD, **sgd)),
+                    "replicated": (False, functools.partial(
+                        torch.optim.SGD, **sgd)),
+                    "control": (True, SkipMeanSGD(PIPE_DP, **sgd))}
+        runs = {}
+
+        def run_dp(name, zero_update, dp_tx):
+            t0 = time.perf_counter()
+            try:
+                eng = CompiledPipelineEngine(
+                    fns, sp, dp_tx, num_microbatches=PIPE_DP_MICROBATCHES,
+                    dp=PIPE_DP, zero_update=zero_update, tied=tied,
+                    channel_bytes=channel, setup_timeout=600,
+                    device=device)
+                try:
+                    up = time.perf_counter() - t0
+                    ls, ws = [], []
+                    for _ in range(PIPE_DP_STEPS):
+                        ls.append(eng.step(mbs, tgts, timeout=600))
+                        ws.append(eng.last_step_s)
+                    runs[name] = dict(
+                        losses=ls, walls=ws, start_s=up,
+                        opt_bytes=eng.opt_state_bytes(),
+                        sync_ms=[r["sync_ms"] for r in eng.last_reports],
+                        peaks=[w["max_memory_allocated"]
+                               for row in eng.placement() for w in row])
+                finally:
+                    eng.shutdown()
+            except Exception as e:           # raised in the driver below
+                runs[name] = {"error": e}
+
+        threads = [threading.Thread(target=run_dp, args=(n, *v), daemon=True)
+                   for n, v in variants.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        check(not any(t.is_alive() for t in threads),
+              "a dp engine did not finish in 900 s")
+        for name in variants:
+            if "error" in runs[name]:
+                raise runs[name]["error"]
+        dp_s = time.perf_counter() - t_dp
+        zero, repl, ctl = (runs[n] for n in ("zero", "replicated",
+                                             "control"))
+        ratios = [a / b for a, b in zip(zero["opt_bytes"],
+                                        repl["opt_bytes"])]
+        err, ctl_err = (abs(r["losses"][1] - repl["losses"][1])
+                        for r in (zero, ctl))
+        for name, r in runs.items():
+            print(f"[pipeline zero] {name}: losses {r['losses']}, step "
+                  f"walls {[round(t * 1e3, 1) for t in r['walls']]} ms, up "
+                  f"in {r['start_s']:.1f} s, opt bytes {r['opt_bytes']}, "
+                  f"sync {r['sync_ms']} ms, peaks "
+                  f"{[round(p / 2**30, 2) for p in r['peaks']]} GiB")
+        print(f"[pipeline zero] dp={PIPE_DP} x P={PIPE_STAGES}: step-1 loss "
+              f"off the replicated run's by {err} (limit {TOL_ZERO_LOSS1}); "
+              f"control '{ZERO_CONTROL}' by {ctl_err}; ZeRO opt bytes over "
+              f"replicated {[round(x, 4) for x in ratios]}; the three "
+              f"engines took {dp_s:.1f} s side by side")
+        check(zero["losses"][0] == repl["losses"][0] == ctl["losses"][0],
+              f"step-0 losses differ: {zero['losses'][0]}, "
+              f"{repl['losses'][0]}, {ctl['losses'][0]}")
+        check(err <= TOL_ZERO_LOSS1, f"the ZeRO step-1 loss is off the "
+              f"replicated one's by {err} > {TOL_ZERO_LOSS1}")
+        check(ctl_err > TOL_ZERO_LOSS1, f"control '{ZERO_CONTROL}' passes: "
+              f"{ctl_err} <= {TOL_ZERO_LOSS1}")
+        check(all(ZERO_OPT_BYTES[0] <= x <= ZERO_OPT_BYTES[1]
+                  for x in ratios), f"ZeRO opt bytes over replicated "
+              f"{ratios} outside {ZERO_OPT_BYTES}")
+    finally:
+        ray_tpu_torch.shutdown()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[pipeline] {card}: the phase took {phase_s:.1f} s: "
+          f"the P={PIPE_STAGES} engine and its reference {pipeline_s:.1f}, "
+          f"the dp={PIPE_DP} engines {dp_s:.1f}")
+    launches = {n: sum(s[f.__name__] for s in stage_launches)
+                + driver_launches[f.__name__] for n, f in counters.items()}
+    return dict(losses=losses, reference_losses=ref_losses,
+                control_losses=ctl_losses, full_loss=full_loss,
+                step_wall_s=walls, step_p50_s=step_p50,
+                tokens_per_s=tokens_per_s, reference_s=ref_s,
+                start_s=start_s, op_ms=op_ms, split_ms=split_ms,
+                edge_bytes=edge_bytes,
+                peak_bytes=peaks, launches=launches,
+                stage_launches=stage_launches,
+                driver_launches=driver_launches,
+                zero={n: {k: v for k, v in r.items()} for n, r in runs.items()},
+                zero_loss1_err=err, zero_control_err=ctl_err,
+                zero_opt_ratios=ratios, dp_s=dp_s, phase_s=phase_s,
+                card=card)
+
+
 def main() -> int:
     import torch
 
@@ -2900,6 +3324,10 @@ def main() -> int:
               f"{__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    # cuBLAS's workspace (its Hopper default), fixed before the first
+    # cuBLAS call here and inherited by every worker process: phase 13
+    # holds stage processes to this one bit for bit
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
     from ray_tpu_torch.ops import (flash_attention_bwd, flash_attention_fwd,
@@ -2979,6 +3407,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         disagg = phase_disagg(wrappers, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        pipeline = phase_pipeline(wrappers, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3004,11 +3435,19 @@ def main() -> int:
                         moe_training=moe_training["launches"]["flash_fwd"],
                         gpt_serving=gpt_serving["launches"][
                             flash_attention_fwd.__name__],
-                        disagg=disagg_launches(flash_attention_fwd))
+                        disagg=disagg_launches(flash_attention_fwd),
+                        pipeline=pipeline["launches"]["flash_fwd"])
     bwd_launches = dict(training=training["launches"]["flash_bwd"],
                         training_fused=training_fused["launches"]["flash_bwd"],
                         moe_training=moe_training["launches"]["flash_bwd"],
-                        disagg=disagg_launches(flash_attention_bwd))
+                        disagg=disagg_launches(flash_attention_bwd),
+                        pipeline=pipeline["launches"]["flash_bwd"])
+
+    def pipeline_launches(wrapper):
+        # the driver's count and every stage's on the pipeline path
+        return pipeline["driver_launches"][wrapper.__name__] + sum(
+            counts[wrapper.__name__]
+            for counts in pipeline["stage_launches"])
 
     def bf16_max_err(rows):
         return max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
@@ -3059,6 +3498,9 @@ def main() -> int:
                 "training_fused": training_fused["launches"][name],
                 "disagg": disagg_launches(
                     ln_matmul_fwd if name == "ln_matmul"
+                    else matmul_residual_fwd),
+                "pipeline": pipeline_launches(
+                    ln_matmul_fwd if name == "ln_matmul"
                     else matmul_residual_fwd)},
             "max_abs_err": bf16_max_err(rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
@@ -3075,7 +3517,7 @@ def main() -> int:
                "training_fused": training_fused,
                "moe_training": moe_training, "vit": vit, "resnet": resnet,
                "head_dims": head_dims, "gpt_serving": gpt_serving,
-               "disagg": disagg,
+               "disagg": disagg, "pipeline": pipeline,
                "fused_backward_products": fused_bwd, "lm_head": lm_head}
     print(f"[summary] {json.dumps(summary)}")
     print(card)

@@ -16,10 +16,14 @@ CUDA forward and backward kernels on the card) or, with
 FC, MLP out + residual) through ``matmul_residual`` and ``ln_matmul``
 (the ops/fused.py kernels), as in the JAX model.
 
+``GPT.pipeline_stages`` / ``gpt_pipeline_stages`` split the model into
+chunk functions for the actor-hosted pipeline engine
+(``ray_tpu_torch.train.pipeline_cgraph``).
+
 Not here until a slice reads them: the XLA compile knobs ``remat`` and
 ``scan_layers``, ``flash_block_q/k`` (the CUDA kernels choose their own
-tiles), ``seq_axis`` (ring attention), ``loss_pp``, the pipeline-stage
-slicing and the sharding tables.
+tiles), ``seq_axis`` (ring attention), ``loss_pp`` (the in-program
+pipeline over a mesh, ROADMAP A4) and the sharding tables.
 """
 from __future__ import annotations
 
@@ -273,6 +277,15 @@ class GPT:
         logits = _LMHead.apply(x.reshape(-1, x.shape[-1]), w)
         return logits.reshape(*x.shape[:-1], w.shape[0])
 
+    def pipeline_stages(self, params: Params, num_chunks: int):
+        """Split this GPT into ``num_chunks`` pipeline chunks for the
+        actor-hosted engine: chunk 0 carries the embedding, the last
+        chunk the final LN + tied LM head + loss, layer blocks divide
+        evenly. Returns ``(chunk_fns, chunk_params, tied)`` — with
+        ``num_chunks = P * virtual_stages`` the same entry point feeds
+        both the plain and the interleaved engine."""
+        return gpt_pipeline_stages(self, params, num_chunks)
+
     def _backbone(self, params: Params, tokens: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   positions: Optional[torch.Tensor] = None
@@ -452,3 +465,83 @@ class GPT:
             attn = paged_attention_decode(q, kl, vl, block_rows, lengths)
             x = self._paged_proj(x, attn, lp)
         return self._paged_logits(params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# pipeline-stage slicing — the model side of the actor-hosted pipeline
+# engine (train/pipeline_cgraph.py). Lives with the model because the
+# split points (embedding / layer blocks / LN+head) are model knowledge,
+# not engine knowledge.
+# ---------------------------------------------------------------------------
+
+
+def gpt_pipeline_stages(model: GPT, params: Params, num_chunks: int):
+    """Split a GPT into ``num_chunks`` pipeline chunks: chunk 0 carries
+    the embedding, the last chunk carries the final LN + tied LM head +
+    loss; layer blocks divide evenly. Returns
+    ``(chunk_fns, chunk_params, tied)`` where chunk fns are
+    ``fn(params, x) -> activation`` for every chunk but the last, which
+    is ``fn(params, x, targets) -> scalar loss`` (the cross entropy over
+    the full f32 logits, as ``GPT.loss`` computes it); ``tied`` names the
+    embedding/LM-head grad-exchange pair in GLOBAL chunk indices. Chunk
+    params hold views of ``params`` (each chunk's slice of the stacked
+    ``[L, ...]`` layer tensors); the engine copies what it ships."""
+    c = model.config
+    L = c.n_layer
+    if num_chunks < 2:
+        raise ValueError("pipeline needs >= 2 chunks")
+    if L % num_chunks:
+        raise ValueError(
+            f"{L} layers not divisible by {num_chunks} chunks")
+    per = L // num_chunks
+
+    def slice_layers(lo, hi):
+        return {k: params[k][lo:hi] for k in GPT.LAYER_PARAMS}
+
+    chunk_params = []
+    for i in range(num_chunks):
+        sp = {"layers": slice_layers(i * per, (i + 1) * per)}
+        if i == 0:
+            sp["wte"] = params["wte"]
+            sp["wpe"] = params["wpe"]
+        if i == num_chunks - 1:
+            sp["lnf_g"] = params["lnf_g"]
+            sp["lnf_b"] = params["lnf_b"]
+            if "wte" not in sp:
+                sp["head"] = params["wte"]  # tied head needs its own copy
+        chunk_params.append(sp)
+
+    def run_layers(model, sp, x):
+        # one unbind per stacked parameter, as GPT._backbone does: its
+        # backward stacks the per-layer gradients once
+        layers = {n: t.unbind(0) for n, t in sp["layers"].items()}
+        for li in range(len(layers["w_qkv"])):
+            x = model._block(x, {n: t[li] for n, t in layers.items()}, None)
+        return x
+
+    def make_first(model):
+        def fn(sp, tokens):
+            x = model._embed(sp["wte"], sp["wpe"], tokens)
+            return run_layers(model, sp, x)
+        return fn
+
+    def make_mid(model):
+        def fn(sp, x):
+            return run_layers(model, sp, x)
+        return fn
+
+    def make_last(model):
+        def fn(sp, x, targets):
+            h = run_layers(model, sp, x)
+            h = layernorm(h, sp["lnf_g"], sp["lnf_b"])
+            head = sp.get("head", sp.get("wte"))
+            return cross_entropy_loss(model._lm_head(head, h), targets)
+        return fn
+
+    chunk_fns = [make_first(model)]
+    for _ in range(num_chunks - 2):
+        chunk_fns.append(make_mid(model))
+    chunk_fns.append(make_last(model))
+    # the tied embedding/head copies must exchange grads every step
+    tied = [(0, "wte", num_chunks - 1, "head")]
+    return chunk_fns, chunk_params, tied

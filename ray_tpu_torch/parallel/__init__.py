@@ -1,3 +1,37 @@
-"""ray_tpu_torch.parallel — the parallel layer of the port. So far it holds
-only ``quant``, the block-scaled wire codecs the compiled-graph channels
-use; the mesh, collective and ZeRO layers are not ported yet."""
+"""ray_tpu_torch.parallel — the parallel layer of the port (counterpart of
+ray_tpu/parallel).
+
+- ``quant``: the block-scaled wire codecs (int8, e4m3) of the
+  compiled-graph channels and the host collectives;
+- ``collective``: actor-to-actor collectives over the object store
+  (allreduce/allgather/reducescatter/broadcast/reduce/send/recv/barrier);
+- ``zero``: the ZeRO-sharded dp update over the collective
+  (``ZeroUpdater``) and the flat-vector and opt-state reshard helpers;
+- ``pipeline``: the 1F1B and interleaved 1F1B schedules.
+
+The mesh, the sharding layer, ``make_zero_update_spmd`` and the
+in-program pipeline wait for ROADMAP A4. The names below load on first
+use, so a worker that only decodes a channel's codec never imports torch.
+"""
+import importlib
+
+_EXPORTS = {
+    "QuantizedTensor": "quant", "quantize": "quant", "dequantize": "quant",
+    "create_collective_group": "collective",
+    "destroy_collective_group": "collective", "get_group": "collective",
+    "allreduce": "collective", "allgather": "collective",
+    "reducescatter": "collective", "broadcast": "collective",
+    "reduce": "collective", "send": "collective", "recv": "collective",
+    "barrier": "collective",
+    "ZeroUpdater": "zero",
+    "schedule_1f1b": "pipeline", "schedule_interleaved_1f1b": "pipeline",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name: str):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)

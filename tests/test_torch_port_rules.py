@@ -77,6 +77,11 @@ def test_port_files_exist():
                  "ray_tpu_torch/core/worker_main.py",
                  "ray_tpu_torch/cgraph/compiled.py",
                  "ray_tpu_torch/serve/llm/disagg.py",
+                 "ray_tpu_torch/parallel/pipeline.py",
+                 "ray_tpu_torch/parallel/collective.py",
+                 "ray_tpu_torch/parallel/zero.py",
+                 "ray_tpu_torch/train/pipeline_cgraph.py",
+                 "ray_tpu_torch/train/pipeline_engine.py",
                  "ray_tpu_torch/_vendor/cloudpickle/cloudpickle.py",
                  *NO_TRY_FILES):
         assert want in names
