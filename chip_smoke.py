@@ -154,16 +154,36 @@ Phases, each of which exits non-zero on failure:
               stage's forward, backward and update ms, the bytes on each
               edge a step, each stage's peak memory, and the phase's
               seconds.
+14. tp      — right after phase 4, with the tp=1 server released:
+              ray_tpu_torch.init(num_cpus=4), then LLMServer("llama2-7b",
+              engine_config={"tp": 2}): two rank actors on the card in a
+              gloo process group (NCCL refuses two ranks on one device),
+              each holding 16 of the 32 heads, its FFN columns and
+              vocabulary rows and its KV heads of every block, built from
+              the seed-0 init one full tensor at a time. The dense flash
+              apply at [1, 1024] on the ranks (32 flash launches each, at
+              [1, 1024, 16, 128]) against phase 3's tp=1 logits with
+              phase 3's limits, and a planted control (layer 0's w_o
+              all-reduce skipped) that must fail them; each collective's
+              cost at a decode step's shapes; then phase 4's 8 requests:
+              every one finishes by length, no block leaks, and each
+              step's logits agree with tp=1's within the same limits
+              until the two streams part; KV bytes per rank half of
+              tp=1's. Prints the decode step p50, TTFT and the requests'
+              wall time beside tp=1's, where the streams part and tp=1's
+              top-two margin there.
 
-Nine main paths are counted: serving (phases 3-4), training (phase 5's
+Ten main paths are counted: serving (phases 3-4), training (phase 5's
 steps), fused training (phase 6's steps), MoE training (phase 8's
 steps), ViT and ResNet training (phases 9-10, which launch no
 hand-written kernel), GPT serving (phase 7's timed engine runs, which
 launch none either; it runs after phase 11), disagg (phase 12's raw
 run, none either: the driver's counts, zeroed just before it, and each
-stage's, which start at zero with its process) and pipeline (phase 13's
+stage's, which start at zero with its process), pipeline (phase 13's
 engine steps: the driver's counts, zeroed just before them, and each
-stage's). Every launch count is zeroed just before each and read just
+stage's) and tp (phase 14's apply on the two ranks, counted on each rank
+from just before it to just after it; the control's launches do not
+count). Every launch count is zeroed just before each and read just
 after it; the kernel comparisons of phases 2 and 11, the gradient
 checks, phase 7's dense reference forward and phase 13's in-process
 reference do not count.
@@ -474,6 +494,30 @@ KERNEL_CLASSES = (("flash_fwd", ("flash_fwd_",)),
 ENGINE_CONFIG = dict(max_batch=8, num_blocks=256, block_size=16,
                      max_blocks_per_seq=16, prefill_buckets=(16, 32, 64))
 N_REQUESTS, MAX_TOKENS = 8, 32
+# Phase 14, tensor-parallel Llama-2-7B: TP rank actors of the port's
+# runtime on the one card (a gloo process group: NCCL refuses two ranks on
+# one device), each building its shard from the seed-0 init the tp=1
+# server used. The dense apply at [1, 1024] is held to the tp=1 server's
+# logits with the forward phase's limits (TOL_LOGITS, TOL_LOGITS_RMS), and
+# a planted control (the first row-parallel all-reduce, layer 0's w_o,
+# skipped on every rank) must fail them (on the H100: sound 0.3038 max
+# abs / 0.0409 rms of the std, control 9.6205 / 1.3374). The serving
+# requests of phase 4 are teacher-forced on tp=1's tokens (the engine
+# emits tp=1's token at each step and decodes on from it), so every one
+# of their N_REQUESTS x MAX_TOKENS steps sees tp=1's context, and each
+# step's logits are held to tp=1's with the same limits. tp=2's logits
+# differ from tp=1's by bf16 noise of about 0.3 max abs, which can swap
+# a top two that tp=1 holds apart by more than phase 7's near-tie limit
+# TOL_GPT_LOGITS (a free-running request parted at a tp=1 margin of
+# 0.2430), so where tp=2's own choice differs is printed, and must lie
+# where tp=1's margin is at most twice that step's max abs error. A
+# planted control in the decode path (TP_KV_CONTROL) must fail the step
+# check. TP_COLLECTIVE_REPS timed calls of each collective at a decode
+# step's shapes give its cost.
+TP = 2
+TP_CONTROL = "first row-parallel all-reduce skipped"
+TP_KV_CONTROL = "rank 1's KV heads reversed in the decode steps"
+TP_COLLECTIVE_REPS = 20
 # GPT-2 small serving: the engine shape of scripts/traffic_harness.py:51-53
 # and its traffic, cut to 8 requests: two system prompts of 48 tokens (6
 # blocks of 8), each opening 3 requests with 8-24 user tokens of their own,
@@ -1189,7 +1233,11 @@ def phase_kernels_bwd():
     return rows
 
 
-def phase_forward(server):
+def phase_forward(server, tp_ref):
+    """Phase 3: Llama-2-7B's flash apply at S=1024 and 4096 against the
+    mha_reference forward and its planted controls. Keeps the [1, 1024]
+    tokens and logits on the host in ``tp_ref`` (phase 14 holds the
+    tensor-parallel apply to them)."""
     import torch
 
     from ray_tpu_torch.models import Llama
@@ -1217,6 +1265,8 @@ def phase_forward(server):
         check(logits.shape == (1, s, c.padded_vocab)
               and bool(torch.isfinite(logits).all()),
               f"apply [1, {s}]: bad logits {tuple(logits.shape)}")
+        if s == 1024:
+            tp_ref["apply"] = (tokens.cpu(), logits.float().cpu())
         ref = ref_model.apply(params, tokens)
         err = logits_errors(logits, ref)
         err_last = (logits[0, -1] - ref[0, -1]).abs().max().item()
@@ -1253,17 +1303,18 @@ def phase_forward(server):
     return out
 
 
-def phase_serving(server):
-    import numpy as np
-    import torch
+def top2_margin(logits):
+    """Top-two logit margin of each row (on the host)."""
+    top = logits.float().topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).cpu()
 
-    from ray_tpu_torch.ops import flash_attention_fwd
 
-    engine = server.engine
-    model, params = engine.model, engine.params
-    prefills = {}            # prompt -> (logits on host, finish time, s)
-    decode_log = []          # (seconds, active slots)
-    run_prefill, run_decode = engine._prefill_fn, engine._decode_fn
+def record_prefills(engine):
+    """Wrap an engine's prefill program: -> {prompt tuple: (its logits on
+    the host, when they were there, the prefill's seconds)}. Phases 4 and
+    14 take TTFT from the client's submit to that time."""
+    prefills = {}
+    run_prefill = engine._prefill_fn
 
     def recording_prefill(params, cache, tokens, length, block_row):
         t0 = time.perf_counter()
@@ -1274,6 +1325,76 @@ def phase_serving(server):
                                                         done - t0)
         return logits, cache
 
+    engine._prefill_fn = recording_prefill
+    return prefills
+
+
+def force_streams(engine, streams):
+    """Teacher forcing: every token an engine emits for a prompt is
+    replaced by that prompt's token in ``streams`` (prompt tuple -> tokens)
+    at the same step, and decoding goes on from it. -> {request id: the
+    tokens the engine chose itself}."""
+    own = {}
+    emit = engine._emit
+
+    def forced(seq, tok):
+        want = streams[tuple(seq.req.prompt)][len(seq.req.generated)]
+        own.setdefault(seq.req.request_id, []).append(tok)
+        seq.pending = want
+        emit(seq, want)
+
+    engine._emit = forced
+    return own
+
+
+def record_step_logits(engine):
+    """Wrap an engine's prefill and decode programs (outside any timing
+    wrapper already installed) and its ``_start_sequence``: -> {request
+    id: [the f32 logits behind each token it emits, on the host]}, the
+    prefill's first, then one row per decode step."""
+    rows, last = {}, {}
+    prefill, decode = engine._prefill_fn, engine._decode_fn
+    start_sequence = engine._start_sequence
+
+    def recorded_prefill(*args):
+        logits, cache = prefill(*args)
+        last["row"] = logits.float().cpu()
+        return logits, cache
+
+    def recorded_decode(*args):
+        slots = {seq.slot: seq.req.request_id for seq in engine._running}
+        logits, cache = decode(*args)
+        host = logits.float().cpu()
+        for slot, rid in slots.items():
+            rows[rid].append(host[slot])
+        return logits, cache
+
+    def started(req, blocks, p, tok):
+        rows[req.request_id] = [last["row"]]
+        start_sequence(req, blocks, p, tok)
+
+    engine._prefill_fn, engine._decode_fn = recorded_prefill, recorded_decode
+    engine._start_sequence = started
+    return rows
+
+
+def phase_serving(server, tp_ref):
+    """Phase 4: LLMServer("llama2-7b") answers N_REQUESTS concurrent
+    requests. Keeps the prompts, each request's tokens and the logits
+    behind each token, the decode step p50, TTFT and the KV cache's bytes
+    in ``tp_ref`` (phase 14 serves the same requests at tp=2 and holds
+    them to these)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention_fwd
+
+    engine = server.engine
+    model, params = engine.model, engine.params
+    prefills = record_prefills(engine)
+    decode_log = []          # (seconds, active slots)
+    run_decode = engine._decode_fn
+
     def timed_decode(*args):
         t0 = time.perf_counter()
         logits, cache = run_decode(*args)
@@ -1281,7 +1402,8 @@ def phase_serving(server):
         decode_log.append((time.perf_counter() - t0, int(args[5].sum())))
         return logits, cache
 
-    engine._prefill_fn, engine._decode_fn = recording_prefill, timed_decode
+    engine._decode_fn = timed_decode
+    step_logits = record_step_logits(engine)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(1, model.config.vocab_size,
                             int(rng.integers(3, 61))).tolist()
@@ -1365,6 +1487,12 @@ def phase_serving(server):
           f"{[round(e['max_abs'], 4) for e in errs]}")
     check(all(map(logits_agree, errs)), "paged prefill disagrees with the "
                                         "dense flash forward")
+    tp_ref["serving"] = dict(
+        prompts=prompts, tokens=[r["tokens"] for r in results],
+        logits=[step_logits[r["request_id"]] for r in results],
+        decode_step_p50_s=out["decode_step_p50_s"],
+        ttft_p50_s=out["ttft_p50_s"], wall_s=wall,
+        kv_bytes=engine.kv_bytes_per_chip()[0])
     return out
 
 
@@ -3312,6 +3440,311 @@ def phase_pipeline(wrappers, card, device=None):
                 card=card)
 
 
+def tp_sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def tp_rank_apply(w, tokens, fault=None):
+    """On a tp rank of phase 14: this rank's flash apply on ``tokens``
+    (every rank gathers the logits; rank 0 returns them on the host), its
+    flash launches and heads, and the seconds it took. ``fault`` plants
+    TP_CONTROL: each rank keeps its own partial of layer 0's w_o product
+    (the same skip on every rank, so the collectives still pair up)."""
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention_fwd
+
+    model = w.model
+    if fault is not None:
+        sound, skipped = model._mm_row, []
+
+        def first_unreduced(x, weight):
+            if skipped:
+                return sound(x, weight)
+            skipped.append(True)
+            return model._mm(x, weight)
+
+        model._mm_row = first_unreduced
+    try:
+        before = flash_attention_fwd.launches
+        tp_sync(w.device)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = model.apply(w.params, tokens.to(w.device))
+        tp_sync(w.device)
+        seconds = time.perf_counter() - t0
+    finally:
+        if fault is not None:
+            del model._mm_row
+    return dict(logits=logits.float().cpu() if w.rank == 0 else None,
+                device=str(logits.device), seconds=seconds,
+                launches=flash_attention_fwd.launches - before,
+                heads=model._heads)
+
+
+def tp_rank_collectives(w, reps):
+    """On a tp rank of phase 14: the median ms of the group's f32
+    all-reduce of a decode step's row-parallel partial [8, d_model] and
+    of the logits gather of this rank's [8, V / tp] slice, on the card."""
+    import torch
+
+    c, tp = w.model.config, w.model.tp
+    partial = torch.randn(8, c.d_model, device=w.device)
+    logits = torch.randn(8, c.padded_vocab // tp.size, device=w.device)
+
+    def median_ms(fn):
+        times = []
+        for _ in range(reps):
+            tp_sync(w.device)
+            t0 = time.perf_counter()
+            fn()
+            tp_sync(w.device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    return dict(all_reduce_ms=median_ms(lambda: tp.all_reduce_f32(partial)),
+                gather_ms=median_ms(lambda: tp.gather_last(logits)))
+
+
+def tp_rank_kv_fault(w, on):
+    """On a tp rank of phase 14: plant (``on``) or lift TP_KV_CONTROL:
+    rank 1's decode steps see its cache with its KV heads in reverse
+    order (and write the step's keys and values into that order)."""
+    model = w.model
+    if not on:
+        model.__dict__.pop("paged_decode_step", None)
+        return True
+    if w.rank == 1:
+        sound = model.paged_decode_step
+
+        def swapped(params, cache, *args):
+            logits, out = sound(params, {n: t.flip(-2)
+                                         for n, t in cache.items()}, *args)
+            return logits, {n: t.flip(-2) for n, t in out.items()}
+
+        model.paged_decode_step = swapped
+    return True
+
+
+def phase_tp(tp_ref, card):
+    """Phase 14: Llama-2-7B at tp=TP through LLMServer(engine_config=
+    {"tp": TP}): TP rank actors on the card, each with its shard from the
+    seed-0 init. The dense apply at [1, 1024] against the tp=1 logits of
+    phase 3 (and the planted control), the collectives' cost, then phase
+    4's requests teacher-forced on phase 4's tokens, each step's logits
+    against phase 4's (and the planted decode-path control), with KV
+    bytes per chip, decode step p50, TTFT and the phase's wall time."""
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    t_phase = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4)
+    server = None
+    try:
+        t0 = time.perf_counter()
+        server = LLMServer("llama2-7b", seed=SEED,
+                           engine_config={**ENGINE_CONFIG, "tp": TP})
+        engine = server.engine
+        up_s = time.perf_counter() - t0
+        ranks = engine.ranks
+        check([r["device"] for r in ranks] == ["cuda:0"] * TP,
+              f"tp ranks not on the card: {ranks}")
+        print(f"[tp] {TP} ranks up in {up_s:.1f} s (pids "
+              f"{[r['pid'] for r in ranks]}, on {ranks[0]['device']}; "
+              f"params {[round(r['param_bytes'] / 2**30, 2) for r in ranks]}"
+              f" GiB, KV cache {[r['kv_bytes'] for r in ranks]} B a rank)")
+        group = engine.mesh_group
+        tokens, ref = tp_ref["apply"]
+        group.run(tp_rank_apply, tokens[:, :128])          # warm-up
+        runs = group.run(tp_rank_apply, tokens)
+        got = runs[0]["logits"]
+        err = logits_errors(got, ref)
+        launches = [r["launches"] for r in runs]
+        control = logits_errors(
+            group.run(tp_rank_apply, tokens, TP_CONTROL)[0]["logits"], ref)
+        print(f"[tp] apply [1, 1024] at tp={TP} vs the tp=1 logits: max abs "
+              f"err {err['max_abs']:.4f} (tol {TOL_LOGITS}), rms err "
+              f"{err['rms_over_std']:.4f} of the std (tol "
+              f"{TOL_LOGITS_RMS}); flash launches per rank {launches} at "
+              f"[1, 1024, {runs[0]['heads']}, 128]; "
+              f"{[round(r['seconds'] * 1e3, 1) for r in runs]} ms per rank; "
+              f"control '{TP_CONTROL}': max abs {control['max_abs']:.4f}, "
+              f"rms {control['rms_over_std']:.4f} of the std")
+        check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+              f"tp apply logits {tuple(got.shape)}")
+        check(all(r["device"] == "cuda:0" for r in runs),
+              f"tp apply ran on {[r['device'] for r in runs]}")
+        check(launches == [engine.model.config.n_layer] * TP,
+              f"tp apply launched flash {launches} times per rank")
+        check(logits_agree(err), "tp apply disagrees with the tp=1 logits")
+        check(not logits_agree(control),
+              f"control '{TP_CONTROL}' passes the logits check")
+        coll = group.run(tp_rank_collectives, TP_COLLECTIVE_REPS)
+        c = engine.model.config
+        per_step = 2 * c.n_layer + 1
+        print(f"[tp] collectives on the card (gloo): f32 all-reduce of "
+              f"[8, {c.d_model}] {[round(x['all_reduce_ms'], 3) for x in coll]}"
+              f" ms p50 per rank (staged through the host by gloo), logits "
+              f"gather of [8, {c.padded_vocab // TP}] "
+              f"{[round(x['gather_ms'], 3) for x in coll]} ms (staged to the "
+              f"host here); a decode step makes {per_step} all-reduces and "
+              f"one gather")
+
+        ser = tp_ref["serving"]
+        prompts = ser["prompts"]
+        streams = {tuple(p): t for p, t in zip(prompts, ser["tokens"])}
+        prefills = record_prefills(engine)
+        decode_s = []
+        run_decode = engine._decode_fn
+
+        def timed_decode(*args):
+            t1 = time.perf_counter()
+            out = run_decode(*args)
+            decode_s.append(time.perf_counter() - t1)
+            return out
+
+        engine._decode_fn = timed_decode
+        step_logits = record_step_logits(engine)
+        own = force_streams(engine, streams)
+
+        def serve_forced(what):
+            """Phase 4's requests through the server, teacher-forced on
+            tp=1's tokens: -> (results, submit times, wall seconds, each
+            request's per-step logit errors against tp=1's)."""
+            results, submitted = [None] * len(prompts), [0.0] * len(prompts)
+            errors = []
+
+            def client(i):
+                submitted[i] = time.perf_counter()
+                try:
+                    results[i] = server({"tokens": prompts[i],
+                                         "max_tokens": MAX_TOKENS})
+                except Exception as e:  # noqa: BLE001 — reported after join
+                    errors.append((i, repr(e)))
+
+            t1 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t1
+            check(not any(t.is_alive() for t in threads),
+                  f"tp clients hung ({what})")
+            check(not errors, f"tp serving clients failed ({what}): {errors}")
+            step_errs = []
+            for i, r in enumerate(results):
+                check(r is not None and r["finish_reason"] == "length"
+                      and r["tokens"] == ser["tokens"][i],
+                      f"tp request {i} ({what}) did not follow tp=1's "
+                      f"tokens: {r}")
+                rows = step_logits[r["request_id"]]
+                check(len(rows) == MAX_TOKENS,
+                      f"tp request {i} ({what}): {len(rows)} logit rows")
+                step_errs.append([logits_errors(got_row, ref_row)
+                                  for got_row, ref_row in
+                                  zip(rows, ser["logits"][i])])
+            engine.pool.check_leaks()
+            check(engine.pool.used_count == 0,
+                  f"KV blocks still held after tp serving ({what})")
+            return results, submitted, wall, step_errs
+
+        results, submitted, wall, step_errs = serve_forced("sound")
+        n_decode = len(decode_s)
+        ttfts = [prefills[tuple(p)][1] - submitted[i]
+                 for i, p in enumerate(prompts)]
+        kv = engine.kv_bytes_per_chip()
+        stats = server.stats()
+        flat = [e for errs in step_errs for e in errs]
+        worst = dict(max_abs=max(e["max_abs"] for e in flat),
+                     rms_over_std=max(e["rms_over_std"] for e in flat))
+        # where tp=2's own choice differs from tp=1's token: tp=1's
+        # top-two margin there, and that step's max abs error (logits
+        # within e of each other can only swap a top two closer than 2e)
+        parted = []
+        for i, r in enumerate(results):
+            for k, (mine, want) in enumerate(zip(own[r["request_id"]],
+                                                 ser["tokens"][i])):
+                if mine != want:
+                    parted.append(dict(
+                        request=i, step=k,
+                        tp1_margin=float(top2_margin(ser["logits"][i][k])),
+                        max_abs=step_errs[i][k]["max_abs"]))
+        check(all(d["tp1_margin"] <= 2 * d["max_abs"] for d in parted),
+              f"tp=2 chose another token than its logits allow: {parted}")
+        check(all(map(logits_agree, flat)),
+              f"tp serving: a step's logits disagree with tp=1's (worst "
+              f"{worst})")
+        check(len(kv) == TP and len(set(kv.values())) == 1
+              and kv[0] * TP == ser["kv_bytes"],
+              f"KV bytes per chip {kv} against tp=1's {ser['kv_bytes']}")
+
+        group.run(tp_rank_kv_fault, True)
+        try:
+            *_, control_errs = serve_forced(TP_KV_CONTROL)
+        finally:
+            group.run(tp_rank_kv_fault, False)
+        control_flat = [e for errs in control_errs for e in errs]
+        kv_control = dict(
+            max_abs=max(e["max_abs"] for e in control_flat),
+            rms_over_std=max(e["rms_over_std"] for e in control_flat),
+            steps_failing=sum(not logits_agree(e) for e in control_flat))
+        out = dict(
+            up_s=up_s, apply_err=err, control_err=control,
+            apply_launches=launches, collectives=coll,
+            collectives_per_decode_step=per_step,
+            kv_bytes_per_chip=kv, kv_bytes_tp1=ser["kv_bytes"],
+            kv_blocks_peak_per_chip=stats["kv_blocks_peak_per_chip"],
+            decode_step_p50_s=statistics.median(decode_s[:n_decode]),
+            decode_step_p50_s_tp1=ser["decode_step_p50_s"],
+            decode_steps=n_decode,
+            ttft_p50_s=statistics.median(ttfts),
+            ttft_p50_s_tp1=ser["ttft_p50_s"], wall_s=wall,
+            wall_s_tp1=ser["wall_s"], steps_compared=len(flat),
+            step_logits_err=worst, own_choice_differs=parted,
+            kv_control_err=kv_control)
+        print(f"[tp] {len(results)} requests x {MAX_TOKENS} tokens at "
+              f"tp={TP}, teacher-forced on tp=1's tokens: all finished by "
+              f"length, no leaked blocks; every step's logits against "
+              f"tp=1's over {len(flat)} steps: worst max abs "
+              f"{worst['max_abs']:.4f} (tol {TOL_LOGITS}), rms "
+              f"{worst['rms_over_std']:.4f} of the std (tol "
+              f"{TOL_LOGITS_RMS}); tp=2's own choice differs from tp=1's "
+              f"token at {len(parted)} steps (request, step, tp=1 margin, "
+              f"max abs there: "
+              f"{[(d['request'], d['step'], round(d['tp1_margin'], 4), round(d['max_abs'], 4)) for d in parted]}"
+              f"); control '{TP_KV_CONTROL}': worst max abs "
+              f"{kv_control['max_abs']:.4f}, rms "
+              f"{kv_control['rms_over_std']:.4f} of the std, "
+              f"{kv_control['steps_failing']} of {len(control_flat)} steps "
+              f"outside the limits; KV bytes per chip {kv} (tp=1: "
+              f"{ser['kv_bytes']}); decode step p50 "
+              f"{out['decode_step_p50_s'] * 1e3:.1f} ms over {n_decode} "
+              f"steps (tp=1: {ser['decode_step_p50_s'] * 1e3:.1f} ms); "
+              f"TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} ms (tp=1: "
+              f"{ser['ttft_p50_s'] * 1e3:.1f} ms; both from the client's "
+              f"submit to the prefill's logits on the host); {wall:.2f} s "
+              f"for the requests (tp=1: {ser['wall_s']:.2f} s)")
+        check(not all(map(logits_agree, control_flat)),
+              f"control '{TP_KV_CONTROL}' passes the logits check")
+        server.shutdown()
+        launches_total = sum(launches)
+    finally:
+        if server is not None:
+            server.shutdown()
+        ray_tpu_torch.shutdown()
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = launches_total
+    print(f"[tp] {card}: the phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3358,8 +3791,9 @@ def main() -> int:
                         ln_matmul_fwd, matmul_residual_fwd)
             for f in wrappers:                  # the serving path starts here
                 f.launches = 0
-            forward = phase_forward(server)
-            serving = phase_serving(server)
+            tp_ref = {}
+            forward = phase_forward(server, tp_ref)
+            serving = phase_serving(server, tp_ref)
             serving_launches = flash_attention_fwd.launches
             check(serving_launches > 0,
                   "the serving path never launched flash_fwd")
@@ -3371,8 +3805,11 @@ def main() -> int:
         serving_peak_gib = torch.cuda.max_memory_allocated() / 2**30
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"[training] Llama-2-7B released: "
+        print(f"[tp] Llama-2-7B at tp=1 released: "
               f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+        tp_serving = phase_tp(tp_ref, card)
+        del tp_ref
+        gc.collect()
         main_fwd = next(r for r in fwd_rows if r["label"] == FWD_MAIN)
         main_bwd = next(r for r in bwd_rows if r["label"] == GPT_CASE)
         gpt_fwd = next(r for r in fwd_rows if r["label"] == GPT_CASE)
@@ -3436,7 +3873,8 @@ def main() -> int:
                         gpt_serving=gpt_serving["launches"][
                             flash_attention_fwd.__name__],
                         disagg=disagg_launches(flash_attention_fwd),
-                        pipeline=pipeline["launches"]["flash_fwd"])
+                        pipeline=pipeline["launches"]["flash_fwd"],
+                        tp=tp_serving["launches"])
     bwd_launches = dict(training=training["launches"]["flash_bwd"],
                         training_fused=training_fused["launches"]["flash_bwd"],
                         moe_training=moe_training["launches"]["flash_bwd"],
@@ -3513,7 +3951,8 @@ def main() -> int:
             "shape": f"[{n}, {k}] x [{k}, {f}] bf16",
             "by_shape": rows,
         })
-    summary = {"forward": forward, "serving": serving, "training": training,
+    summary = {"forward": forward, "serving": serving,
+               "tp_serving": tp_serving, "training": training,
                "training_fused": training_fused,
                "moe_training": moe_training, "vit": vit, "resnet": resnet,
                "head_dims": head_dims, "gpt_serving": gpt_serving,

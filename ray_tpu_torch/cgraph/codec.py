@@ -57,8 +57,10 @@ _TENSOR_FLOAT_NAMES = ("torch.float16", "torch.bfloat16", "torch.float32")
 
 
 def _quantizable(x) -> bool:
-    torch = sys.modules.get("torch")
-    if torch is not None and isinstance(x, torch.Tensor):
+    # torch.Tensor where torch is imported (not yet while another thread
+    # is importing it: no tensor exists before the class)
+    tensor = getattr(sys.modules.get("torch"), "Tensor", None)
+    if tensor is not None and isinstance(x, tensor):
         return (x.device.type == "cpu"
                 and str(x.dtype) in _TENSOR_FLOAT_NAMES
                 and x.numel() * x.element_size() >= MIN_QUANT_BYTES)

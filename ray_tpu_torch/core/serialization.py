@@ -88,12 +88,23 @@ class _RefTrackingPickler(cloudpickle.CloudPickler):
         if isinstance(obj, ObjectRef):
             self._contained_refs.append(obj)
         # a tensor exists only where torch was imported: no import here
-        torch = sys.modules.get("torch")
-        if torch is not None and isinstance(obj, torch.Tensor):
+        tensor = _torch_tensor_type()
+        if tensor is not None and isinstance(obj, tensor):
             return _reduce_tensor(obj)
         sup = super()
         return sup.reducer_override(obj) \
             if hasattr(sup, "reducer_override") else NotImplemented
+
+
+def _torch_tensor_type():
+    """``torch.Tensor`` where torch is imported, else None — also while
+    another thread is still importing it: the module is in sys.modules
+    from the start of its import, its ``Tensor`` only later, and no
+    tensor can exist before it. (Reading the attribute off a half-imported
+    torch raised inside the pickler, so every value this process
+    serialized in that window failed, the replies of actor calls
+    included, and their callers waited forever.)"""
+    return getattr(sys.modules.get("torch"), "Tensor", None)
 
 
 def _reduce_tensor(t):

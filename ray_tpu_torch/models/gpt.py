@@ -20,10 +20,23 @@ FC, MLP out + residual) through ``matmul_residual`` and ``ln_matmul``
 chunk functions for the actor-hosted pipeline engine
 (``ray_tpu_torch.train.pipeline_cgraph``).
 
+``GPT(config, tp=TensorParallel(...))`` (or ``tensor_parallel(tp)``) is
+one rank of the tensor-parallel split (parallel/sharding/
+tensor_parallel.py), which ``apply`` and the paged programs run: this
+rank's heads of the fused ``w_qkv`` (taken out of each of q, k and v, so
+not the reference spec's contiguous column chunk) and FFN columns, one f32
+all-reduce after ``w_proj`` and after ``w_out`` (their biases added once,
+after it), the vocabulary-split embedding and tied head with the logits
+gathered (on the host, where gloo's all-gather leaves them: the paged
+programs return them there, ``apply`` moves them to the device).
+``fused_entry_exit`` under tp raises (ROADMAP A4.5): ``matmul_residual``
+would add the residual into every rank's partial sum and round it to
+bf16 before the f32 all-reduce.
+
 Not here until a slice reads them: the XLA compile knobs ``remat`` and
 ``scan_layers``, ``flash_block_q/k`` (the CUDA kernels choose their own
-tiles), ``seq_axis`` (ring attention), ``loss_pp`` (the in-program
-pipeline over a mesh, ROADMAP A4) and the sharding tables.
+tiles), ``seq_axis`` (ring attention) and ``loss_pp`` (the in-program
+pipeline over a mesh, ROADMAP A4.3).
 """
 from __future__ import annotations
 
@@ -39,6 +52,8 @@ from ..ops import (cross_entropy_loss, flash_attention, gelu, layernorm,
                    ln_matmul, matmul_residual, mha_reference,
                    paged_attention_decode, paged_attention_prefill,
                    paged_write_prefill, paged_write_step)
+from ..parallel.sharding.tensor_parallel import (TensorParallel,
+                                                 head_layout, matmul_f32)
 
 Params = Dict[str, torch.Tensor]
 
@@ -146,8 +161,23 @@ class GPT:
     _NORMAL = ("wte", "wpe", "w_qkv", "w_proj", "w_fc", "w_out")
     _RESIDUAL = ("w_proj", "w_out")    # GPT-2's 1/sqrt(2L) init scale
 
-    def __init__(self, config: GPTConfig):
+    def __init__(self, config: GPTConfig,
+                 tp: Optional[TensorParallel] = None):
         self.config = config
+        self.tp = tp if tp is not None and tp.size > 1 else None
+        if self.tp is not None and config.fused_entry_exit:
+            raise NotImplementedError(
+                "GPTConfig.fused_entry_exit under tensor parallelism is not "
+                "ported (ROADMAP A4.5): the fused exit would need an f32 "
+                "partial product with the residual on one rank")
+        self._layout = None if self.tp is None else head_layout(
+            config.n_head, config.n_head, tp.size, tp.rank)
+        self._heads = config.n_head if self.tp is None else \
+            len(self._layout.q_heads)
+
+    def tensor_parallel(self, tp: TensorParallel) -> "GPT":
+        """This model as rank ``tp.rank`` of a tensor-parallel group."""
+        return GPT(self.config, tp)
 
     # ---- parameters ------------------------------------------------------
 
@@ -171,22 +201,81 @@ class GPT:
         residual projections w_proj / w_out 0.02 / sqrt(2L)), layernorm
         gains one, biases zero. Same distribution as the JAX init; not the
         same numbers."""
+        return dict(self.init_items(generator))
+
+    def init_items(self, generator: torch.Generator):
+        """``init`` one full tensor at a time: (name, tensor) in
+        ``param_shapes`` order, the same draws."""
         c = self.config
         res_std = 0.02 / math.sqrt(2 * c.n_layer)
         dev = generator.device
-        out = {}
         for name, shape in self.param_shapes().items():
             if name in self._NORMAL:
                 t = torch.randn(shape, generator=generator,
                                 dtype=c.param_dtype, device=dev)
-                out[name] = t.mul_(res_std if name in self._RESIDUAL
+                yield name, t.mul_(res_std if name in self._RESIDUAL
                                    else 0.02)
             elif name.endswith("_g"):
-                out[name] = torch.ones(shape, dtype=c.param_dtype, device=dev)
+                yield name, torch.ones(shape, dtype=c.param_dtype,
+                                       device=dev)
             else:
-                out[name] = torch.zeros(shape, dtype=c.param_dtype,
+                yield name, torch.zeros(shape, dtype=c.param_dtype,
                                         device=dev)
-        return out
+
+    def shard_param(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the full parameter ``x`` (``x`` itself on
+        the unsplit model and for the replicated ones)."""
+        tp, c = self.tp, self.config
+        if tp is None:
+            return x
+        heads, hd = self._layout.q_heads, c.head_dim
+        if name == "wte":
+            return tp.take_block(x, 0)                  # vocabulary rows
+        if name in ("w_qkv", "b_qkv"):
+            # [..., 3D] as [..., 3, H * hd]: this rank's heads of each
+            d = x.dim() - 1
+            return tp.take_heads(x.unflatten(d, (3, c.d_model)), d + 1,
+                                 heads, hd).flatten(d, d + 1)
+        if name == "w_proj":
+            return tp.take_heads(x, 1, heads, hd)
+        if name in ("w_fc", "b_fc"):
+            return tp.take_block(x, x.dim() - 1)        # FFN columns
+        if name == "w_out":
+            return tp.take_block(x, 1)                  # FFN rows
+        return x
+
+    def shard_params(self, params) -> Params:
+        """This rank's params from full ones: a dict, or (name, tensor)
+        pairs such as ``init_items`` yields."""
+        items = params.items() if isinstance(params, dict) else params
+        return {n: self.shard_param(n, t) for n, t in items}
+
+    @staticmethod
+    def logical_axes() -> Dict[str, Tuple[Optional[str], ...]]:
+        """Per-param logical axes; the leading layer-stack axis is
+        unsharded. Mapped to mesh axes by AxisRules."""
+        return {
+            "wte": ("vocab", "embed"),
+            "wpe": (None, "embed"),
+            "ln1_g": (None, None), "ln1_b": (None, None),
+            "w_qkv": (None, "embed", "heads"),
+            "b_qkv": (None, "heads"),
+            "w_proj": (None, "heads", "embed"),
+            "b_proj": (None, "embed"),
+            "ln2_g": (None, None), "ln2_b": (None, None),
+            "w_fc": (None, "embed", "mlp"),
+            "b_fc": (None, "mlp"),
+            "w_out": (None, "mlp", "embed"),
+            "b_out": (None, "embed"),
+            "lnf_g": (None,), "lnf_b": (None,),
+        }
+
+    def param_shardings(self, mesh, rules=None):
+        from ..parallel.mesh import AxisRules, NamedSharding
+
+        rules = rules or AxisRules()
+        return {name: NamedSharding(mesh, rules.mesh_axes(axes))
+                for name, axes in self.logical_axes().items()}
 
     def num_params(self) -> int:
         return sum(math.prod(s) for s in self.param_shapes().values())
@@ -205,6 +294,15 @@ class GPT:
     def _mm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return x @ w.to(self.config.dtype)
 
+    def _mm_row(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``_mm`` of a row-parallel weight (w_proj, w_out): under tp the
+        partial products are summed over the group in f32 and rounded
+        once."""
+        if self.tp is None:
+            return self._mm(x, w)
+        dtype = self.config.dtype
+        return self.tp.all_reduce_f32(matmul_f32(x, w.to(dtype))).to(dtype)
+
     def _dropout(self, x: torch.Tensor,
                  generator: torch.Generator) -> torch.Tensor:
         """Inverted dropout: keep each element with probability 1 - rate
@@ -220,16 +318,17 @@ class GPT:
                generator: Optional[torch.Generator]) -> torch.Tensor:
         c = self.config
         B, S, D = x.shape
-        H, hd = c.n_head, c.head_dim
+        H, hd = self._heads, c.head_dim
         drop = c.dropout > 0.0 and generator is not None
         if c.fused_entry_exit:
             qkv = ln_matmul(x.reshape(B * S, D), lp["ln1_g"], lp["ln1_b"],
                             lp["w_qkv"].to(c.dtype),
-                            lp["b_qkv"].to(c.dtype)).reshape(B, S, 3 * D)
+                            lp["b_qkv"].to(c.dtype)).reshape(B, S,
+                                                             3 * H * hd)
         else:
             h = layernorm(x, lp["ln1_g"], lp["ln1_b"])
             qkv = self._mm(h, lp["w_qkv"]) + lp["b_qkv"].to(c.dtype)
-        q, k, v = (t.reshape(B, S, H, hd) for t in qkv.split(D, dim=-1))
+        q, k, v = (t.reshape(B, S, H, hd) for t in qkv.split(H * hd, dim=-1))
         if c.use_flash:
             # the split views of qkv are strided; the kernels take
             # contiguous [B, S, H, D]
@@ -248,14 +347,14 @@ class GPT:
             return matmul_residual(h, lp["w_out"].to(c.dtype),
                                    lp["b_out"].to(c.dtype),
                                    x).reshape(B, S, D)
-        proj = self._mm(attn.reshape(B, S, D), lp["w_proj"]) \
+        proj = self._mm_row(attn.reshape(B, S, H * hd), lp["w_proj"]) \
             + lp["b_proj"].to(c.dtype)
         if drop:
             proj = self._dropout(proj, generator)
         x = x + proj
         h = layernorm(x, lp["ln2_g"], lp["ln2_b"])
         h = gelu(self._mm(h, lp["w_fc"]) + lp["b_fc"].to(c.dtype))
-        out = self._mm(h, lp["w_out"]) + lp["b_out"].to(c.dtype)
+        out = self._mm_row(h, lp["w_out"]) + lp["b_out"].to(c.dtype)
         if drop:
             out = self._dropout(out, generator)
         return x + out
@@ -268,6 +367,9 @@ class GPT:
         [B, S] (or [1, S]) index ``wpe``; None means 0..S-1."""
         dtype = self.config.dtype
         pos = wpe[: tokens.shape[1]] if positions is None else wpe[positions]
+        if self.tp is not None:
+            tok = self.tp.embed(wte, tokens, self.config.padded_vocab)
+            return tok.to(dtype) + pos.to(dtype)
         return F.embedding(tokens, wte).to(dtype) + pos.to(dtype)
 
     def _lm_head(self, head_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -275,7 +377,15 @@ class GPT:
         and returned in f32 (``_LMHead``), as the JAX model's head."""
         w = head_w.to(self.config.dtype)
         logits = _LMHead.apply(x.reshape(-1, x.shape[-1]), w)
-        return logits.reshape(*x.shape[:-1], w.shape[0])
+        logits = self._gather_vocab(logits).to(x.device)
+        return logits.reshape(*x.shape[:-1], logits.shape[-1])
+
+    def _gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """Under tp, every rank's vocabulary slice of the logits, gathered
+        on the host."""
+        if self.tp is None:
+            return logits
+        return self.tp.gather_last(logits, self.config.padded_vocab)
 
     def pipeline_stages(self, params: Params, num_chunks: int):
         """Split this GPT into ``num_chunks`` pipeline chunks for the
@@ -363,7 +473,7 @@ class GPT:
         """Block-pool KV cache shared by every resident sequence:
         k/v [L, num_blocks, block_size, H, hd] (GPT has no GQA: KH = H)."""
         c = self.config
-        shape = (c.n_layer, num_blocks, block_size, c.n_head, c.head_dim)
+        shape = (c.n_layer, num_blocks, block_size, self._heads, c.head_dim)
         return {"k": torch.zeros(shape, dtype=c.dtype, device=device),
                 "v": torch.zeros(shape, dtype=c.dtype, device=device)}
 
@@ -375,14 +485,14 @@ class GPT:
         c = self.config
         h = layernorm(x, lp["ln1_g"], lp["ln1_b"])
         qkv = self._mm(h, lp["w_qkv"]) + lp["b_qkv"].to(c.dtype)
-        return (t.reshape(*x.shape[:-1], c.n_head, c.head_dim)
-                for t in qkv.split(c.d_model, dim=-1))
+        return (t.reshape(*x.shape[:-1], self._heads, c.head_dim)
+                for t in qkv.split(self._heads * c.head_dim, dim=-1))
 
     def _paged_proj(self, x: torch.Tensor, attn: torch.Tensor,
                     lp: Params) -> torch.Tensor:
         """The attention projection's residual, then the MLP's."""
         c = self.config
-        x = x + self._mm(attn.reshape(x.shape), lp["w_proj"]) \
+        x = x + self._mm_row(attn.reshape(*x.shape[:-1], -1), lp["w_proj"]) \
             + lp["b_proj"].to(c.dtype)
         return self._paged_mlp(x, lp)
 
@@ -390,12 +500,12 @@ class GPT:
         c = self.config
         h = layernorm(x, lp["ln2_g"], lp["ln2_b"])
         h = gelu(self._mm(h, lp["w_fc"]) + lp["b_fc"].to(c.dtype))
-        return x + self._mm(h, lp["w_out"]) + lp["b_out"].to(c.dtype)
+        return x + self._mm_row(h, lp["w_out"]) + lp["b_out"].to(c.dtype)
 
     def _paged_logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """Final layernorm and the tied head as an f32 product with wte."""
         x = layernorm(x, params["lnf_g"], params["lnf_b"])
-        return x.float() @ params["wte"].float().T
+        return self._gather_vocab(x.float() @ params["wte"].float().T)
 
     def paged_prefill(self, params: Params, cache: Params,
                       tokens: torch.Tensor, length: int,

@@ -10,6 +10,16 @@ model; ``cast_matmul_weights`` stores that cast once (numerically the
 same, without re-casting 6.5 B parameters every step), which is what
 ``build_model`` serves from. The paged programs write the KV cache in
 place and return it.
+
+``Llama(config, tp=TensorParallel(...))`` (or ``tensor_parallel(tp)``) is
+one rank of the tensor-parallel split (parallel/sharding/
+tensor_parallel.py): ``shard_params`` cuts the full params into this
+rank's, and ``apply`` and the paged programs run on them, with the
+query/KV heads and FFN columns of this rank, one f32 all-reduce after
+``w_o`` and after ``w_down``, the vocabulary-split embedding and the
+logits gathered over the group, on the host (where gloo's all-gather
+leaves them: the paged programs return them there, ``apply`` and
+``decode_step`` move them to the device).
 """
 from __future__ import annotations
 
@@ -24,6 +34,8 @@ from ..ops import (apply_rope, cross_entropy_loss, flash_attention,
                    mha_reference, paged_attention_decode,
                    paged_attention_prefill, paged_write_prefill,
                    paged_write_step, rmsnorm, rope_cache)
+from ..parallel.sharding.tensor_parallel import (TensorParallel,
+                                                 head_layout, matmul_f32)
 
 Params = Dict[str, torch.Tensor]
 
@@ -77,8 +89,22 @@ class Llama:
                     "w_gate", "w_up", "w_down")
     MATMUL_PARAMS = ("w_q", "w_k", "w_v", "w_o", "w_gate", "w_up", "w_down")
 
-    def __init__(self, config: LlamaConfig):
+    def __init__(self, config: LlamaConfig,
+                 tp: Optional[TensorParallel] = None):
         self.config = config
+        self.tp = tp if tp is not None and tp.size > 1 else None
+        if self.tp is None:
+            self._layout = None
+            self._heads, self._kv_heads = config.n_head, config.n_kv_head
+        else:
+            self._layout = head_layout(config.n_head, config.n_kv_head,
+                                       tp.size, tp.rank)
+            self._heads = len(self._layout.q_heads)
+            self._kv_heads = len(self._layout.kv_heads)
+
+    def tensor_parallel(self, tp: TensorParallel) -> "Llama":
+        """This model as rank ``tp.rank`` of a tensor-parallel group."""
+        return Llama(self.config, tp)
 
     def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
         c = self.config
@@ -96,18 +122,73 @@ class Llama:
         """Parameters on ``generator.device``: normals of std 0.02 (the
         residual projections w_o / w_down 0.02 / sqrt(2L)), norms at one.
         Same distribution as the JAX init; not the same numbers."""
+        return dict(self.init_items(generator))
+
+    def init_items(self, generator: torch.Generator):
+        """``init`` one full tensor at a time: (name, tensor) in
+        ``param_shapes`` order, the same draws."""
         c = self.config
         res_std = 0.02 / math.sqrt(2 * c.n_layer)
-        out = {}
         for name, shape in self.param_shapes().items():
             if name.endswith("norm"):
-                out[name] = torch.ones(shape, dtype=c.param_dtype,
+                yield name, torch.ones(shape, dtype=c.param_dtype,
                                        device=generator.device)
                 continue
             t = torch.randn(shape, generator=generator, dtype=c.param_dtype,
                             device=generator.device)
-            out[name] = t.mul_(res_std if name in ("w_o", "w_down") else 0.02)
-        return out
+            yield name, t.mul_(res_std if name in ("w_o", "w_down")
+                               else 0.02)
+
+    def shard_param(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the full parameter ``x`` (``x`` itself on
+        the unsplit model and for the replicated norms)."""
+        tp, lay, hd = self.tp, self._layout, self.config.head_dim
+        if tp is None:
+            return x
+        if name in ("wte", "lm_head"):
+            return tp.take_block(x, 0)                  # vocabulary rows
+        if name == "w_q":
+            return tp.take_heads(x, 2, lay.q_heads, hd)
+        if name in ("w_k", "w_v"):
+            return tp.take_heads(x, 2, lay.kv_heads, hd)
+        if name == "w_o":
+            return tp.take_heads(x, 1, lay.q_heads, hd)
+        if name in ("w_gate", "w_up"):
+            return tp.take_block(x, 2)                  # FFN columns
+        if name == "w_down":
+            return tp.take_block(x, 1)                  # FFN rows
+        return x
+
+    def shard_params(self, params) -> Params:
+        """This rank's params from full ones: a dict, or (name, tensor)
+        pairs such as ``init_items`` yields (each full tensor can then be
+        freed as soon as it is cut)."""
+        items = params.items() if isinstance(params, dict) else params
+        return {n: self.shard_param(n, t) for n, t in items}
+
+    @staticmethod
+    def logical_axes() -> Dict[str, Tuple[Optional[str], ...]]:
+        return {
+            "wte": ("vocab", "embed"),
+            "attn_norm": (None, None),
+            "w_q": (None, "embed", "heads"),
+            "w_k": (None, "embed", "heads"),
+            "w_v": (None, "embed", "heads"),
+            "w_o": (None, "heads", "embed"),
+            "mlp_norm": (None, None),
+            "w_gate": (None, "embed", "mlp"),
+            "w_up": (None, "embed", "mlp"),
+            "w_down": (None, "mlp", "embed"),
+            "out_norm": (None,),
+            "lm_head": ("vocab", "embed"),
+        }
+
+    def param_shardings(self, mesh, rules=None):
+        from ..parallel.mesh import AxisRules, NamedSharding
+
+        rules = rules or AxisRules()
+        return {n: NamedSharding(mesh, rules.mesh_axes(a))
+                for n, a in self.logical_axes().items()}
 
     def cast_matmul_weights(self, params: Params) -> Params:
         """Params with the matmul weights stored in ``config.dtype`` (the
@@ -135,29 +216,37 @@ class Llama:
     def _mm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return x @ w.to(self.config.dtype)
 
+    def _mm_row(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``_mm`` of a row-parallel weight (w_o, w_down): under tp the
+        partial products are summed over the group in f32 and rounded
+        once."""
+        if self.tp is None:
+            return self._mm(x, w)
+        dtype = self.config.dtype
+        return self.tp.all_reduce_f32(matmul_f32(x, w.to(dtype))).to(dtype)
+
     def _mlp(self, x: torch.Tensor, lp: Params) -> torch.Tensor:
         c = self.config
         h = rmsnorm(x, lp["mlp_norm"], c.rms_eps)
         gate = F.silu(self._mm(h, lp["w_gate"]))
         up = self._mm(h, lp["w_up"])
-        return x + self._mm(gate * up, lp["w_down"])
+        return x + self._mm_row(gate * up, lp["w_down"])
 
     def _qkv(self, x: torch.Tensor, lp: Params):
         c = self.config
         lead = x.shape[:-1]
         h = rmsnorm(x, lp["attn_norm"], c.rms_eps)
-        q = self._mm(h, lp["w_q"]).reshape(*lead, c.n_head, c.head_dim)
-        k = self._mm(h, lp["w_k"]).reshape(*lead, c.n_kv_head, c.head_dim)
-        v = self._mm(h, lp["w_v"]).reshape(*lead, c.n_kv_head, c.head_dim)
+        q = self._mm(h, lp["w_q"]).reshape(*lead, self._heads, c.head_dim)
+        k = self._mm(h, lp["w_k"]).reshape(*lead, self._kv_heads, c.head_dim)
+        v = self._mm(h, lp["w_v"]).reshape(*lead, self._kv_heads, c.head_dim)
         return q, k, v
 
     def _repeat_kv(self, k: torch.Tensor, v: torch.Tensor):
         """GQA: each KV head serves n_head / n_kv_head consecutive query
         heads (jnp.repeat semantics, i.e. repeat_interleave)."""
-        c = self.config
-        if c.n_kv_head == c.n_head:
+        if self._kv_heads == self._heads:
             return k, v
-        rep = c.n_head // c.n_kv_head
+        rep = self._heads // self._kv_heads
         return (k.repeat_interleave(rep, dim=2),
                 v.repeat_interleave(rep, dim=2))
 
@@ -175,17 +264,27 @@ class Llama:
             attn = flash_attention(q, k, v, causal=True)
         else:
             attn = mha_reference(q, k, v, causal=True)
-        x = x + self._mm(attn.reshape(B, S, c.n_head * c.head_dim), lp["w_o"])
+        x = x + self._mm_row(attn.reshape(B, S, self._heads * c.head_dim),
+                             lp["w_o"])
         return self._mlp(x, lp)
 
     def _head(self, x: torch.Tensor, params: Params) -> torch.Tensor:
-        """Final norm and the f32 LM head on f32 weights."""
+        """Final norm and the f32 LM head on f32 weights (under tp each
+        rank's vocabulary rows, the logits gathered over the group on the
+        host: the paged programs return them there, ``apply`` moves them
+        to the device)."""
         x = rmsnorm(x, params["out_norm"], self.config.rms_eps)
-        return x.float() @ params["lm_head"].float().T
+        logits = x.float() @ params["lm_head"].float().T
+        if self.tp is None:
+            return logits
+        return self.tp.gather_last(logits, self.config.padded_vocab)
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         # gather then cast: the same values as casting the whole table
-        return params["wte"][tokens].to(self.config.dtype)
+        if self.tp is None:
+            return params["wte"][tokens].to(self.config.dtype)
+        return self.tp.embed(params["wte"], tokens, self.config.padded_vocab
+                             ).to(self.config.dtype)
 
     def apply(self, params: Params, tokens: torch.Tensor,
               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -199,7 +298,7 @@ class Llama:
                               device=x.device)
         for li in range(c.n_layer):
             x = self._block(x, self._layer(params, li), cos, sin, positions)
-        return self._head(x, params)
+        return self._head(x, params).to(x.device)
 
     def loss(self, params: Params, tokens: torch.Tensor,
              targets: torch.Tensor) -> torch.Tensor:
@@ -211,7 +310,8 @@ class Llama:
                          device: torch.device) -> Params:
         """Block-pool KV cache: k/v [L, num_blocks, block_size, KH, hd]."""
         c = self.config
-        shape = (c.n_layer, num_blocks, block_size, c.n_kv_head, c.head_dim)
+        shape = (c.n_layer, num_blocks, block_size, self._kv_heads,
+                 c.head_dim)
         return {"k": torch.zeros(shape, dtype=c.dtype, device=device),
                 "v": torch.zeros(shape, dtype=c.dtype, device=device)}
 
@@ -235,8 +335,8 @@ class Llama:
             paged_write_prefill(cache["v"][li], block_row, v[0], length)
             k, v = self._repeat_kv(k, v)
             attn = mha_reference(q, k, v, causal=True)
-            x = x + self._mm(attn.reshape(1, S, c.n_head * c.head_dim),
-                             lp["w_o"])
+            x = x + self._mm_row(
+                attn.reshape(1, S, self._heads * c.head_dim), lp["w_o"])
             x = self._mlp(x, lp)
         last = x[0, max(int(length) - 1, 0)]
         return self._head(last, params), cache
@@ -268,8 +368,8 @@ class Llama:
                                      start)
             attn = paged_attention_prefill(q[0], kl, vl, block_row, start,
                                            length)
-            x = x + self._mm(attn.reshape(1, S, c.n_head * c.head_dim),
-                             lp["w_o"])
+            x = x + self._mm_row(
+                attn.reshape(1, S, self._heads * c.head_dim), lp["w_o"])
             x = self._mlp(x, lp)
         last = x[0, max(int(length) - 1, 0)]
         return self._head(last, params), cache
@@ -297,8 +397,8 @@ class Llama:
                                   v[:, 0], active)
             attn = paged_attention_decode(q[:, 0], kl, vl, block_rows,
                                           lengths)
-            x = x + self._mm(attn.reshape(B, c.n_head * c.head_dim),
-                             lp["w_o"])
+            x = x + self._mm_row(attn.reshape(B, self._heads * c.head_dim),
+                                 lp["w_o"])
             x = self._mlp(x, lp)
         return self._head(x, params), cache
 
@@ -308,7 +408,7 @@ class Llama:
         """Dense KV cache: k/v [L, batch, max_seq, KH, hd] and the next
         write position of each row, pos [batch]."""
         c = self.config
-        shape = (c.n_layer, batch, c.max_seq, c.n_kv_head, c.head_dim)
+        shape = (c.n_layer, batch, c.max_seq, self._kv_heads, c.head_dim)
         return {"k": torch.zeros(shape, dtype=c.dtype, device=device),
                 "v": torch.zeros(shape, dtype=c.dtype, device=device),
                 "pos": torch.zeros((batch,), dtype=torch.int32,
@@ -322,7 +422,7 @@ class Llama:
         the JAX model."""
         c = self.config
         B = tokens.shape[0]
-        H, hd = c.n_head, c.head_dim
+        H, hd = self._heads, c.head_dim
         pos = cache["pos"].long()                              # [B]
         x = self._embed(params, tokens)                        # [B, 1, D]
         cos, sin = rope_cache(c.max_seq, hd, c.rope_base, device=x.device)
@@ -346,8 +446,8 @@ class Llama:
             probs = torch.softmax(scores, dim=-1)
             attn = torch.einsum("bhqk,bkhd->bqhd", probs,
                                 vv.float()).to(c.dtype)
-            x = x + self._mm(attn.reshape(B, 1, H * hd), lp["w_o"])
+            x = x + self._mm_row(attn.reshape(B, 1, H * hd), lp["w_o"])
             x = self._mlp(x, lp)
-        logits = self._head(x, params)[:, 0]
+        logits = self._head(x, params)[:, 0].to(x.device)
         return logits, {"k": torch.stack(new_k), "v": torch.stack(new_v),
                         "pos": cache["pos"] + 1}

@@ -146,9 +146,11 @@ class MoE:
         }
 
     def param_shardings(self, mesh, rules=None):
-        raise NotImplementedError("MoE.param_shardings needs the sharding "
-                                  "layer (ROADMAP.md A4), which is not "
-                                  "ported yet")
+        from ..parallel.mesh import AxisRules, NamedSharding
+
+        rules = rules or AxisRules()
+        return {n: NamedSharding(mesh, rules.mesh_axes(a))
+                for n, a in self.logical_axes().items()}
 
     def num_params(self) -> int:
         return sum(math.prod(s) for s in self.param_shapes().values())

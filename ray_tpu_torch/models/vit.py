@@ -125,9 +125,11 @@ class ViT:
         }
 
     def param_shardings(self, mesh, rules=None):
-        raise NotImplementedError("ViT.param_shardings needs the sharding "
-                                  "layer (ROADMAP.md A4), which is not "
-                                  "ported yet")
+        from ..parallel.mesh import AxisRules, NamedSharding
+
+        rules = rules or AxisRules()
+        return {n: NamedSharding(mesh, rules.mesh_axes(a))
+                for n, a in self.logical_axes().items()}
 
     def _patchify(self, images: torch.Tensor) -> torch.Tensor:
         """[B, H, W, C] -> [B, (H/p)(W/p), p*p*C], patches in row-major

@@ -7,10 +7,15 @@ ray_tpu/parallel).
   (allreduce/allgather/reducescatter/broadcast/reduce/send/recv/barrier);
 - ``zero``: the ZeRO-sharded dp update over the collective
   (``ZeroUpdater``) and the flat-vector and opt-state reshard helpers;
-- ``pipeline``: the 1F1B and interleaved 1F1B schedules.
+- ``pipeline``: the 1F1B and interleaved 1F1B schedules;
+- ``mesh``: ``MeshSpec`` / ``build_mesh`` (a torch DeviceMesh over the
+  ranks of the world process group) and the logical-axis rules;
+- ``mesh_group``: ``MeshGroup``, a gang of rank actors that forms a
+  process group;
+- ``sharding``: ``MeshOwner``, ``SpecLayout`` and the lowering helpers.
 
-The mesh, the sharding layer, ``make_zero_update_spmd`` and the
-in-program pipeline wait for ROADMAP A4. The names below load on first
+The in-program fsdp plane, ``make_zero_update_spmd`` and the in-program
+pipeline wait for ROADMAP A4.2 and A4.3. The names below load on first
 use, so a worker that only decodes a channel's codec never imports torch.
 """
 import importlib
@@ -25,6 +30,15 @@ _EXPORTS = {
     "barrier": "collective",
     "ZeroUpdater": "zero",
     "schedule_1f1b": "pipeline", "schedule_interleaved_1f1b": "pipeline",
+    "MeshSpec": "mesh", "build_mesh": "mesh", "virtual_mesh": "mesh",
+    "local_mesh": "mesh", "named_sharding": "mesh",
+    "shard_constraint": "mesh", "logical_to_mesh": "mesh",
+    "AxisRules": "mesh", "default_axis_rules": "mesh",
+    "mesh_shape_for": "mesh",
+    "MeshGroup": "mesh_group", "MeshWorkerMixin": "mesh_group",
+    "MeshOwner": "sharding", "SpecLayout": "sharding",
+    "lower_jit": "sharding", "lower_shard_map": "sharding",
+    "FsdpPlane": "sharding",
 }
 
 __all__ = list(_EXPORTS)

@@ -163,11 +163,16 @@ class CollectiveGroup:
         mine = value
         if _quant.wire_bytes(value) >= _BY_REF_BYTES:
             mine = _ByRef(ray_tpu_torch.put(value))
-        ray_tpu_torch.get(self._store.put.remote(seq, self.rank, mine))
         deadline = time.monotonic() + timeout
+        # every wait on the store is bounded by the deadline: a reply that
+        # never comes fails the collective instead of hanging the rank
+        ray_tpu_torch.get(self._store.put.remote(seq, self.rank, mine),
+                          timeout=timeout)
         delay = 0.0005
         while True:
-            row = ray_tpu_torch.get(self._store.gather.remote(seq))
+            row = ray_tpu_torch.get(
+                self._store.gather.remote(seq),
+                timeout=max(deadline - time.monotonic(), 1.0))
             if row is not None:
                 refs = [v.ref for v in row if isinstance(v, _ByRef)]
                 if refs:
@@ -220,6 +225,17 @@ def destroy_collective_group(group_name: str = "default") -> None:
             ray_tpu_torch.kill(g._store)
         except Exception:
             pass
+        # the kill is asynchronous: until the store is dead its name still
+        # resolves, and a group re-created under the same name right away
+        # (get_if_exists) would adopt the dying store and fail with
+        # ActorDiedError. Wait (bounded) for the name to come free.
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            try:
+                ray_tpu_torch.get_actor(g._store_name)
+            except ValueError:
+                break
+            time.sleep(0.01)
 
 
 def get_group(group_name: str = "default") -> CollectiveGroup:

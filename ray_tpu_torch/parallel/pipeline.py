@@ -9,7 +9,7 @@ several model chunks. The actor-hosted engine
 stage actor's op list.
 
 Not here: the in-program collective pipeline ``pipeline_spmd`` and
-``stack_stages``, which run over a device mesh (ROADMAP A4).
+``stack_stages``, which run over a device mesh (ROADMAP A4.3).
 """
 from __future__ import annotations
 

@@ -112,9 +112,10 @@ def _itemsize(dtype: str) -> int:
 
 def _is_tensor(x) -> bool:
     # a tensor exists only where torch was imported: numpy-only callers
-    # never pay the import
-    torch = sys.modules.get("torch")
-    return torch is not None and isinstance(x, torch.Tensor)
+    # never pay the import (nor trip on a torch another thread is still
+    # importing, whose Tensor does not exist yet)
+    tensor = getattr(sys.modules.get("torch"), "Tensor", None)
+    return tensor is not None and isinstance(x, tensor)
 
 
 def _block_view(flat: np.ndarray, block: int) -> np.ndarray:

@@ -15,7 +15,7 @@ sharding, so the sharded update is numerically the replicated update.
 (``parallel/collective.py``): the compiled-graph pipeline engine
 (``train/pipeline_cgraph.py``) uses it between the dp replicas of one
 stage. The in-program plane over a mesh axis (``make_zero_update_spmd``)
-is not here: it waits for the sharding layer (ROADMAP A4).
+is not here: it waits for the in-program fsdp plane (ROADMAP A4.2).
 
 Both work on the FLAT parameter vector: parameter trees (nested dicts,
 lists and tuples of tensors; dict keys in sorted order, as JAX orders

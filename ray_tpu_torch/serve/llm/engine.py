@@ -23,15 +23,31 @@ PyTorch runs the model's programs eagerly; prompts are still padded to
 the next ``prefill_buckets`` entry and decode always runs ``max_batch``
 slots, because those shapes are part of what the JAX engine computes.
 
+With ``EngineConfig(tp=n)``, n > 1, the engine forms a gang of n rank
+actors (``parallel.mesh_group.MeshGroup``, a gloo process group; the
+runtime must be started, ``ray_tpu_torch.init()``). Each rank holds its
+shard of the params and of the KV cache (the model's tensor-parallel
+split, ``parallel/sharding/tensor_parallel.py``: by heads, FFN columns
+and vocabulary rows; the device cache by KV head, every block on every
+rank). The scheduler and the ``BlockPool(shards=tp)`` accounting stay
+here, as in the JAX engine, so admission, preemption, the prefix cache
+and ``stats()["kv_blocks_per_chip"]`` are the same; each step sends its
+host inputs (tokens, positions, block rows, the active mask, a
+copy-on-write pair) to every rank, and rank 0 returns the full
+vocabulary's logits. ``params`` is then either the full params (each
+rank cuts its shard out of one shipped copy) or a callable
+``params(tp_model)`` with a ``device`` attribute, which each rank runs on
+that device to build its own shard (``deployment.SeededShards``), so the
+full weights never cross the object store.
+
     engine = LLMEngine(model, params, EngineConfig(max_batch=8))
     engine.start()                       # background scheduler thread
     stream = engine.add_request([1, 5, 9], max_tokens=32)
     for tok in stream: ...               # sync; `async for` also works
 
 Disaggregated intake (``add_prefilled``) adopts KV blocks that a prefill
-stage computed elsewhere (disagg.py). Not ported yet (each raises or is
-absent): tensor parallelism (``tp``), metrics, tracing, the flight
-recorder and ``profile()``.
+stage computed elsewhere (disagg.py). Not ported yet (absent): metrics,
+tracing, the flight recorder and ``profile()``.
 """
 from __future__ import annotations
 
@@ -47,6 +63,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...parallel.mesh_group import MeshWorkerMixin
 from .kv_cache import BlockPool, blocks_for_tokens
 from .prefix_cache import PrefixCache
 
@@ -58,7 +75,10 @@ class EngineConfig:
     num_blocks: int = 128
     max_batch: int = 8                 # decode batch (slots)
     max_blocks_per_seq: int = 16       # block-table width (M)
-    tp: int = 1                        # only 1 is ported
+    # tensor parallelism: one engine = a gang of tp rank actors, heads,
+    # FFN hidden and vocabulary split over them; num_blocks must be a
+    # multiple of tp (the pool's per-chip accounting)
+    tp: int = 1
     # prefill-token admission budget per scheduler iteration; at least
     # one waiting request is always admitted so a long prompt can't starve
     max_prefill_tokens_per_step: int = 256
@@ -193,6 +213,122 @@ def _copy_block(cache: Dict[str, torch.Tensor], src: int,
     return cache
 
 
+def _write_blocks(cache: Dict[str, torch.Tensor], blocks: List[int],
+                  kv_blocks: Dict[str, Any]) -> None:
+    """Copy shipped KV blocks k/v [L, nb, block_size, KH, hd] into pool
+    blocks ``blocks`` of ``cache``, in the cache's dtype."""
+    idx = torch.tensor(blocks, device=next(iter(cache.values())).device)
+    for name, pool in cache.items():
+        src = kv_blocks[name]
+        if not isinstance(src, torch.Tensor):
+            src = torch.tensor(np.asarray(src))  # a copy
+        pool[:, idx] = src.to(pool.device, pool.dtype)
+
+
+def _cache_bytes(cache: Dict[str, torch.Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in cache.values())
+
+
+class _EngineRank(MeshWorkerMixin):
+    """One rank of a tensor-parallel engine: its shard of the params and
+    of the KV cache on its device, and the model's programs on them. Every
+    rank runs each call (the programs' collectives need all of them);
+    rank 0 returns the logits."""
+
+    def load(self, model, params, num_blocks: int, block_size: int,
+             device: str) -> Dict[str, Any]:
+        import os
+
+        from ..._device import resolve_device
+        from ...parallel.sharding.tensor_parallel import TensorParallel
+
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        tp = TensorParallel.from_owner(self.mesh_owner)
+        if self.device.type == "cpu":
+            # CPU ranks share their host's cores: each takes its share of
+            # intra-op threads (every rank defaulting to all of them
+            # oversubscribes the host several times over)
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // tp.size))
+        self._check_collectives(tp)
+        self.rank = tp.rank
+        self.model = model.tensor_parallel(tp)
+        with torch.no_grad():
+            if callable(params):
+                self.params = params(self.model)
+            else:
+                self.params = {n: t.to(self.device) for n, t in
+                               self.model.shard_params(params).items()}
+        self.cache = self.model.init_paged_cache(num_blocks, block_size,
+                                                 self.device)
+        return {"rank": tp.rank, "pid": os.getpid(),
+                "device": str(self.device),
+                "param_bytes": _cache_bytes(self.params),
+                "kv_bytes": _cache_bytes(self.cache)}
+
+    def _check_collectives(self, tp) -> None:
+        """The group's all-reduce on this rank's device and its host
+        all-gather give the sums and rows they must, before any weight
+        is trusted to them: a failed collective fails the engine."""
+        x = torch.full((4,), float(tp.rank + 1), device=self.device)
+        total = tp.all_reduce_f32(x)
+        want = tp.size * (tp.size + 1) / 2
+        rows = tp.gather_last(torch.full((1, 2), float(tp.rank),
+                                         device=self.device))
+        if total.device != self.device or not bool((total == want).all()) \
+                or rows.flatten().tolist() != [float(r) for r in range(
+                    tp.size) for _ in range(2)]:
+            raise RuntimeError(
+                f"tp rank {tp.rank}: collectives on {self.device} gave "
+                f"{total.tolist()} and {rows.tolist()}")
+
+    def _out(self, logits):
+        return logits.cpu() if self.rank == 0 else None
+
+    def prefill(self, tokens, length, block_row):
+        with torch.no_grad():
+            logits, self.cache = self.model.paged_prefill(
+                self.params, self.cache, tokens.to(self.device), length,
+                block_row.to(self.device))
+        return self._out(logits)
+
+    def extend(self, tokens, start, length, block_row):
+        with torch.no_grad():
+            logits, self.cache = self.model.paged_prefill_extend(
+                self.params, self.cache, tokens.to(self.device), start,
+                length, block_row.to(self.device))
+        return self._out(logits)
+
+    def decode(self, tokens, positions, rows, active):
+        dev = self.device
+        with torch.no_grad():
+            logits, self.cache = self.model.paged_decode_step(
+                self.params, self.cache, tokens.to(dev), positions.to(dev),
+                rows.to(dev), active.to(dev))
+        return self._out(logits)
+
+    def cow(self, src: int, dst: int) -> bool:
+        with torch.no_grad():
+            _copy_block(self.cache, src, dst)
+        return True
+
+    def write_blocks(self, blocks: List[int], kv_blocks) -> bool:
+        """Shipped full-head KV blocks, cut to this rank's KV heads."""
+        heads, hd = self.model._layout.kv_heads, self.model.config.head_dim
+        local = {}
+        for name, v in kv_blocks.items():                # [L, nb, bs, KH, hd]
+            flat = v.flatten(-2)
+            local[name] = self.model.tp.take_heads(
+                flat, flat.dim() - 1, heads, hd).unflatten(-1, (-1, hd))
+        with torch.no_grad():
+            _write_blocks(self.cache, blocks, local)
+        return True
+
+    def kv_bytes(self) -> int:
+        return _cache_bytes(self.cache)
+
+
 class LLMEngine:
     """One replica's inference engine. Thread-safe: `add_request` may be
     called from any thread; the scheduler runs either on the background
@@ -201,12 +337,9 @@ class LLMEngine:
 
     _ids = itertools.count()
 
-    def __init__(self, model: Any, params: Dict[str, torch.Tensor],
+    def __init__(self, model: Any, params: Any,
                  config: Optional[EngineConfig] = None, name: str = ""):
         cfg = config or EngineConfig()
-        if cfg.tp != 1:
-            raise NotImplementedError("tensor-parallel serving (tp > 1) is "
-                                      "not ported yet")
         buckets = tuple(sorted(set(
             min(b, cfg.max_context, model.config.max_seq)
             for b in cfg.prefill_buckets)))
@@ -214,21 +347,27 @@ class LLMEngine:
             raise ValueError("prefill_buckets must be non-empty")
         self.model = model
         self.params = params
-        self.device = params["wte"].device
         self.config = cfg
         self.buckets = buckets
         self.max_prompt = buckets[-1]
         # hard context ceiling: the block table AND the model's positions
         self.max_seq_len = min(cfg.max_context, model.config.max_seq)
         self.name = name or f"llm-{next(self._ids)}"
-        self.pool = BlockPool(cfg.num_blocks)
-        self._cache = model.init_paged_cache(cfg.num_blocks, cfg.block_size,
-                                             self.device)
-        # the model's programs, as attributes so a caller can observe them
-        self._prefill_fn = model.paged_prefill
-        self._extend_fn = model.paged_prefill_extend
-        self._decode_fn = model.paged_decode_step
-        self._cow_fn = _copy_block
+        self.tp = int(cfg.tp)
+        self.pool = BlockPool(cfg.num_blocks, shards=self.tp)
+        self.mesh_group = None
+        if self.tp > 1:
+            self._start_ranks(model, params, cfg)
+        else:
+            self.device = params["wte"].device
+            self._cache = model.init_paged_cache(
+                cfg.num_blocks, cfg.block_size, self.device)
+            # the model's programs, as attributes so a caller can
+            # observe them
+            self._prefill_fn = model.paged_prefill
+            self._extend_fn = model.paged_prefill_extend
+            self._decode_fn = model.paged_decode_step
+            self._cow_fn = _copy_block
         self._lock = threading.RLock()
         self._waiting: "collections.deque[Request]" = collections.deque()
         self._running: List[_Sequence] = []
@@ -238,12 +377,65 @@ class LLMEngine:
         self._total_generated = 0
         self._total_preemptions = 0
         self._peak_blocks = 0
+        self._peak_per_chip: List[int] = [0] * self.tp
         self._tok_events: "collections.deque" = collections.deque()
         self.prefix_cache: Optional[PrefixCache] = None
         self._prefix_hits = 0          # tokens served from cached KV
         self._prefix_misses = 0        # tokens that paid prefill compute
         if cfg.prefix_cache:
             self.prefix_cache = PrefixCache(self.pool, cfg.block_size)
+
+    def _start_ranks(self, model, params, cfg: EngineConfig) -> None:
+        """Form the gang of tp rank actors and load each rank's shard.
+        The programs below send a step's host inputs to every rank and
+        take rank 0's logits; ``self._cache`` stays None (the cache lives
+        on the ranks)."""
+        import ray_tpu_torch
+
+        from ...parallel.mesh import MeshSpec
+        from ...parallel.mesh_group import MeshGroup
+
+        if not ray_tpu_torch.is_initialized():
+            raise RuntimeError(
+                f"EngineConfig(tp={self.tp}) runs its ranks as actors of "
+                "the port's runtime: call ray_tpu_torch.init() first")
+        device = str(params["wte"].device if isinstance(params, dict)
+                     else params.device)
+        dev_type = torch.device(device).type
+        # the driver sends host tensors; the ranks hold the device ones
+        self.device = torch.device("cpu")
+        self._cache = None
+        if isinstance(params, dict):
+            # one copy into the object store, read by every rank
+            params = ray_tpu_torch.put({n: t.detach().cpu()
+                                        for n, t in params.items()})
+        self.mesh_group = MeshGroup(
+            self.tp, spec=MeshSpec(dp=1, tp=self.tp),
+            worker_cls=_EngineRank, device_type=dev_type)
+        try:
+            self.ranks = ray_tpu_torch.get([
+                w.load.remote(model, params, cfg.num_blocks,
+                              cfg.block_size, device)
+                for w in self.mesh_group.workers])
+        except BaseException:
+            self.mesh_group.shutdown()
+            raise
+
+        def call(method):
+            def run(*args):
+                return ray_tpu_torch.get(
+                    [getattr(w, method).remote(*args)
+                     for w in self.mesh_group.workers])[0]
+            return run
+
+        prefill, extend, decode = (call("prefill"), call("extend"),
+                                   call("decode"))
+        self._prefill_fn = lambda params, cache, *a: (prefill(*a), cache)
+        self._extend_fn = lambda params, cache, *a: (extend(*a), cache)
+        self._decode_fn = lambda params, cache, *a: (decode(*a), cache)
+        cow = call("cow")
+        self._cow_fn = lambda cache, src, dst: (cow(src, dst), cache)[1]
+        self._write_ranks = call("write_blocks")
 
     # -- request intake -------------------------------------------------------
 
@@ -304,12 +496,13 @@ class LLMEngine:
                     self.pool.free(blocks)
                     blocks = None
                 if blocks is not None:
-                    idx = torch.tensor(blocks, device=self.device)
-                    for name, pool in self._cache.items():
-                        src = kv_blocks[name]
-                        if not isinstance(src, torch.Tensor):
-                            src = torch.tensor(np.asarray(src))  # a copy
-                        pool[:, idx] = src.to(self.device, pool.dtype)
+                    if self.mesh_group is None:
+                        _write_blocks(self._cache, blocks, kv_blocks)
+                    else:
+                        self._write_ranks(blocks, {
+                            n: torch.as_tensor(np.asarray(v)) if not
+                            isinstance(v, torch.Tensor) else v.cpu()
+                            for n, v in kv_blocks.items()})
                     seq = _Sequence(req, slot, blocks, len(prompt),
                                     int(first_token))
                     self._running.append(seq)
@@ -333,6 +526,9 @@ class LLMEngine:
             admitted = self._admit()
             decoded = self._decode_iteration()
             self._peak_blocks = max(self._peak_blocks, self.pool.used_count)
+            for chip, used in enumerate(self.pool.used_per_shard()):
+                self._peak_per_chip[chip] = max(self._peak_per_chip[chip],
+                                                used)
             return admitted or decoded
 
     def _alloc_with_evict(self, n: int) -> Optional[List[int]]:
@@ -652,6 +848,14 @@ class LLMEngine:
             t.join(timeout)
         self._thread = None
 
+    def shutdown(self, timeout: float = 10.0) -> None:
+        """Stop the scheduler and, at tp > 1, the rank actors
+        (idempotent)."""
+        self.stop(timeout)
+        if self.mesh_group is not None:
+            self.mesh_group.shutdown()
+            self.mesh_group = None
+
     def run_until_idle(self, timeout: float = 300.0) -> None:
         """Drive the scheduler inline until no request is waiting or
         running (test mode; don't mix with start())."""
@@ -687,6 +891,19 @@ class LLMEngine:
         span = now - self._tok_events[0][0]
         return sum(n for _, n in self._tok_events) / max(span, 1e-6)
 
+    def kv_bytes_per_chip(self) -> Dict[int, int]:
+        """Resident KV-cache bytes per chip, keyed 0..tp-1 as the pool's
+        shard accounting: at tp > 1 read from each rank's own cache
+        tensors (by KV head, so each is total / tp where the KV heads
+        divide by tp)."""
+        if self.mesh_group is None:
+            with self._lock:  # the step loop may replace _cache
+                return {0: _cache_bytes(self._cache)}
+        import ray_tpu_torch
+
+        return dict(enumerate(ray_tpu_torch.get(
+            [w.kv_bytes.remote() for w in self.mesh_group.workers])))
+
     def cache_stats(self) -> Dict[str, Any]:
         """Prefix-cache health: hit rate over prompt tokens, hit and miss
         token counts, resident blocks, nodes and evictions. All zeros
@@ -718,9 +935,14 @@ class LLMEngine:
                 "tokens_per_s": round(self._tokens_per_s(), 1),
                 "total_generated": self._total_generated,
                 "preemptions": self._total_preemptions,
-                "tp": 1,
+                "tp": self.tp,
                 "kv_blocks_peak": self._peak_blocks,
             }
             if self.prefix_cache is not None:
                 out.update(self.cache_stats())
+            if self.tp > 1:
+                out["kv_blocks_per_chip"] = self.pool.used_per_shard()
+                out["kv_blocks_peak_per_chip"] = list(self._peak_per_chip)
+                out["kv_bytes_per_chip"] = {
+                    str(d): b for d, b in self.kv_bytes_per_chip().items()}
             return out

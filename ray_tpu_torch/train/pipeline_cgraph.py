@@ -63,7 +63,7 @@ engine — ``step()`` raises ``CompiledGraphClosedError`` — and
 ``shutdown()`` releases every pre-allocated channel segment.
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that brings them: ``fsdp > 1`` (the sharding layer, A4), the data feed
+that brings them: ``fsdp > 1`` (the fsdp plane, A4.2), the data feed
 (``attach_feed`` / ``detach_feed`` / ``feed_stats``: the data plane),
 and elastic capacity (``enable_elastic`` / ``resize``: the autoscaler,
 with the serve control plane in A7). ``reshard_checkpoint`` is here.
@@ -611,7 +611,7 @@ class _CGStage:
         if kind == "fsdp":
             raise ValueError(
                 "checkpoint holds fsdp-sharded state; fsdp is not ported "
-                "to ray_tpu_torch yet (ROADMAP A4)")
+                "to ray_tpu_torch yet (ROADMAP A4.2)")
         if kind == "zero":
             if self._zero is None:
                 raise ValueError(
@@ -696,7 +696,7 @@ class CompiledPipelineEngine:
     virtual_stages: model chunks per actor (interleaved 1F1B when > 1).
     dp: data-parallel pipeline replicas; each stage's dp group syncs
         grads at update time.
-    fsdp: must be 1 (the sharded plane waits for ROADMAP A4).
+    fsdp: must be 1 (the sharded plane waits for ROADMAP A4.2).
     zero_update: ZeRO-shard the dp update (1/dp optimizer state per
         replica) vs the replicated allreduce update.
     grad_codec: block-scaled wire codec ("int8"/"e4m3") for the dp
@@ -760,7 +760,7 @@ class CompiledPipelineEngine:
         if self.fsdp < 1:
             raise ValueError(f"fsdp must be >= 1, got {fsdp}")
         if self.fsdp > 1:
-            raise _not_ported(f"CompiledPipelineEngine(fsdp={fsdp})", "A4")
+            raise _not_ported(f"CompiledPipelineEngine(fsdp={fsdp})", "A4.2")
         self.num_chunks = G
         self.num_stages = G // V
         self.virtual = V

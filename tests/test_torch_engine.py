@@ -241,7 +241,13 @@ def test_requests_that_cannot_run_fail_loud(tiny, case):
 
 @pytest.mark.parametrize("over", [{"tp": 2}])
 def test_unported_engine_options_raise(tiny, over):
-    with pytest.raises(NotImplementedError):
+    """tp > 1 is ported (tests/test_torch_sharding.py): its ranks are
+    actors of the port's runtime, and without a runtime the engine says
+    so instead of starting one behind the caller's back."""
+    import ray_tpu_torch
+
+    assert not ray_tpu_torch.is_initialized()
+    with pytest.raises(RuntimeError, match=r"ray_tpu_torch\.init\(\)"):
         mk_engine(tiny, **over)
 
 

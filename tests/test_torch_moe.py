@@ -85,8 +85,13 @@ def test_init_names_shapes_and_axes_match_jax(pair):
     # w_down starts 1/sqrt(2L) narrower than w_up, as in JAX (L = 2)
     ratio = params["w_down"].std() / params["w_up"].std()
     assert abs(float(ratio) - 0.5) < 0.05
-    with pytest.raises(NotImplementedError, match="sharding"):
-        tm.param_shardings(None)
+    # param_shardings maps the logical axes through the default rules to
+    # the JAX model's specs (the sharding layer, parallel/mesh.py)
+    from ray_tpu.parallel.mesh import AxisRules as JAxisRules
+
+    for name, sharding in tm.param_shardings(None).items():
+        assert sharding.spec == tuple(JAxisRules().mesh_axes(
+            jm.logical_axes()[name])), name
 
 
 @pytest.mark.parametrize("preset", ["tiny", "small"])

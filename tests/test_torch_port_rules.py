@@ -82,6 +82,12 @@ def test_port_files_exist():
                  "ray_tpu_torch/parallel/zero.py",
                  "ray_tpu_torch/train/pipeline_cgraph.py",
                  "ray_tpu_torch/train/pipeline_engine.py",
+                 "ray_tpu_torch/parallel/mesh.py",
+                 "ray_tpu_torch/parallel/mesh_group.py",
+                 "ray_tpu_torch/parallel/sharding/layout.py",
+                 "ray_tpu_torch/parallel/sharding/owner.py",
+                 "ray_tpu_torch/parallel/sharding/lower.py",
+                 "ray_tpu_torch/parallel/sharding/tensor_parallel.py",
                  "ray_tpu_torch/_vendor/cloudpickle/cloudpickle.py",
                  *NO_TRY_FILES):
         assert want in names

@@ -71,8 +71,13 @@ def test_init_names_shapes_and_axes_match_jax():
     for name in ("cls", "head/w", "head/b", "patch/b"):
         assert torch.equal(params[name], torch.zeros_like(params[name]))
     assert abs(float(params["patch/w"].std()) * np.sqrt(8 * 8 * 3) - 1) < 0.1
-    with pytest.raises(NotImplementedError, match="sharding"):
-        tm.param_shardings(None)
+    # param_shardings maps the logical axes through the default rules to
+    # the JAX model's specs (the sharding layer, parallel/mesh.py)
+    from ray_tpu.parallel.mesh import AxisRules as JAxisRules
+
+    for name, sharding in tm.param_shardings(None).items():
+        assert sharding.spec == tuple(JAxisRules().mesh_axes(
+            jm.logical_axes()[name])), name
 
 
 def test_convert_rejects_wrong_names_and_shapes():

@@ -22,6 +22,9 @@ the actors are defined inside the tests, so no worker imports this
 module.
 """
 import functools
+import itertools
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -47,6 +50,9 @@ def _tree(seed=0):
             "a": [rng.randn(2, 2).astype(np.float32),
                   rng.randn(1).astype(np.float32)],
             "c": rng.randn(7).astype(np.float32)}
+
+
+_GROUP_IDS = itertools.count()
 
 
 def _torch_tree(tree):
@@ -161,29 +167,31 @@ def test_opt_state_flatten_split_merge_round_trip():
 
 
 def _two_ranks(rt, fn, *args):
-    """Run ``fn(rank, *args)`` on two actor ranks of one collective group
-    -> [result of rank 0, result of rank 1]."""
+    """Run ``fn(rank, group, *args)`` on two actor ranks of one collective
+    group -> [result of rank 0, result of rank 1]. Each call has a group
+    (and so a rendezvous store) of its own name."""
     @ray_tpu_torch.remote
     class Rank:
-        def __init__(self, rank):
+        def __init__(self, rank, group):
             from ray_tpu_torch.parallel import collective as coll
 
-            self.rank = rank
+            self.rank, self.name = rank, group
             # held for the actor's life; close() releases it
             self.group = coll.create_collective_group(2, rank,
-                                                      group_name="g2")
+                                                      group_name=group)
 
         def run(self, fn, *a):
-            return fn(self.rank, *a)
+            return fn(self.rank, self.name, *a)
 
         def close(self):
             from ray_tpu_torch.parallel import collective as coll
 
             if self.rank == 0:
-                coll.destroy_collective_group("g2")
+                coll.destroy_collective_group(self.name)
             return True
 
-    ranks = [Rank.options(num_cpus=0.5).remote(r) for r in range(2)]
+    group = f"g2-{os.getpid()}-{next(_GROUP_IDS)}"
+    ranks = [Rank.options(num_cpus=0.5).remote(r, group) for r in range(2)]
     try:
         return ray_tpu_torch.get([r.run.remote(fn, *args) for r in ranks],
                                  timeout=120)
@@ -201,7 +209,7 @@ def test_collectives_equal_numpy_sums(rt):
     kind it was given, and reducescatter cuts where np.array_split
     does. Contributions of 1 MiB and more travel by reference; the
     "big" ones here do."""
-    def body(rank):
+    def body(rank, g2):
         import numpy as np_
         import torch as torch_
 
@@ -215,28 +223,28 @@ def test_collectives_equal_numpy_sums(rt):
         for kind in ("numpy", "torch"):
             x = a if kind == "numpy" else torch_.from_numpy(a.copy())
             out[kind] = {
-                "allreduce": coll.allreduce(x, "g2"),
-                "max": coll.allreduce(x, "g2", op="max"),
-                "reducescatter": coll.reducescatter(x, "g2"),
-                "allgather": coll.allgather(x, "g2"),
-                "broadcast": coll.broadcast(x, 1, "g2"),
-                "reduce": coll.reduce(x, 0, "g2")}
+                "allreduce": coll.allreduce(x, g2),
+                "max": coll.allreduce(x, g2, op="max"),
+                "reducescatter": coll.reducescatter(x, g2),
+                "allgather": coll.allgather(x, g2),
+                "broadcast": coll.broadcast(x, 1, g2),
+                "reduce": coll.reduce(x, 0, g2)}
             xb = big if kind == "numpy" else torch_.from_numpy(big.copy())
             out[kind]["big"] = {
-                "allreduce": coll.allreduce(xb, "g2"),
-                "reducescatter": coll.reducescatter(xb, "g2"),
-                "allgather": coll.allgather(xb, "g2")}
+                "allreduce": coll.allreduce(xb, g2),
+                "reducescatter": coll.reducescatter(xb, g2),
+                "allgather": coll.allgather(xb, g2)}
             for codec in ("int8", "e4m3"):
                 out[kind][codec] = {
-                    "allreduce": coll.allreduce(x, "g2", codec=codec),
-                    "reducescatter": coll.reducescatter(x, "g2",
+                    "allreduce": coll.allreduce(x, g2, codec=codec),
+                    "reducescatter": coll.reducescatter(x, g2,
                                                         codec=codec),
                     "mine": quant.dequantize(quant.quantize(x, codec))}
         if rank == 0:
-            coll.send(a * 2, 1, "g2", tag=3)
+            coll.send(a * 2, 1, g2, tag=3)
         else:
-            out["recv"] = coll.recv(0, "g2", tag=3)
-        coll.barrier("g2")
+            out["recv"] = coll.recv(0, g2, tag=3)
+        coll.barrier(g2)
         return out
 
     r0, r1 = _two_ranks(rt, body)
@@ -280,6 +288,35 @@ def test_collectives_equal_numpy_sums(rt):
                                           r0["big"])
             np.testing.assert_array_equal(val(res["allgather"][1]),
                                           r1["big"])
+
+
+def test_serialization_while_another_thread_imports_torch(monkeypatch):
+    """The rendezvous store of the collectives imports torch the first
+    time a rank sends it a tensor (a worker starts without torch). While
+    that import runs on one of its threads, torch sits in sys.modules
+    without its ``Tensor``: serializing any value there (another rank's
+    gather reply of int8/e4m3 payloads) raised AttributeError, the reply
+    and even its error report were lost, and that rank waited forever —
+    test_collectives_equal_numpy_sums's timeouts under load. A module
+    without ``Tensor`` stands for the half-imported torch here: values
+    still serialize and round-trip, and the tensor checks of the codecs
+    say "not a tensor"."""
+    import types
+
+    from ray_tpu_torch.cgraph import codec as wire_codec
+    from ray_tpu_torch.core import serialization
+    from ray_tpu_torch.parallel import quant
+
+    a = np.random.RandomState(0).randn(1001).astype(np.float32)
+    row = [quant.quantize(a, "e4m3"), quant.quantize(a * 2, "int8"), a]
+    monkeypatch.setitem(sys.modules, "torch", types.ModuleType("torch"))
+    back = serialization.loads(serialization.dumps(row))
+    assert not quant._is_tensor(a) and not wire_codec._quantizable(7)
+    monkeypatch.undo()
+    for got, want in zip(back[:2], row[:2]):
+        np.testing.assert_array_equal(got.payload, want.payload)
+        np.testing.assert_array_equal(got.scales, want.scales)
+    np.testing.assert_array_equal(back[2], a)
 
 
 @pytest.mark.parametrize("codec", ["int8", "e4m3"])
@@ -431,7 +468,7 @@ def test_zero_updater_with_codec_keeps_f32_master(rt):
     the f32 master shard (bitwise the plain Adam step on the dequantized
     mean gradient), the returned params are the master's int8 image, and
     opt_state() carries the master beside the optimizer state."""
-    def body(rank):
+    def body(rank, g2):
         import functools as ft
 
         import numpy as np_
@@ -446,7 +483,7 @@ def test_zero_updater_with_codec_keeps_f32_master(rt):
             np_.random.RandomState(10 + rank).randn(600).astype(
                 np_.float32))}
         upd = ZeroUpdater(ft.partial(torch_.optim.Adam, lr=0.1), 2, rank,
-                          group_name="g2", grad_codec="int8").init(params)
+                          group_name=g2, grad_codec="int8").init(params)
         new = upd.update(params, grads)
         state = upd.opt_state()
         return {"new": new["w"], "master": state["master"],
