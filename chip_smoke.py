@@ -173,20 +173,43 @@ Phases, each of which exits non-zero on failure:
               wall time beside tp=1's, where the streams part and tp=1's
               top-two margin there.
 
-Ten main paths are counted: serving (phases 3-4), training (phase 5's
-steps), fused training (phase 6's steps), MoE training (phase 8's
+15. fsdp pipeline — inside phase 13's runtime, right after its P=2
+              engine: the same split, params, microbatches, AdamW and 4
+              steps at fsdp=2, each stage a gang of two rank processes on
+              the card in a gloo group (the stage actor, which runs the
+              chunk's forward and backward, and a peer holding the other
+              half of the stage's flat params and moments; the stage
+              gathers the params once a step and scatters the gradient's
+              chunks at the update). The losses and final params equal
+              phase 13's run_reference_1f1b result bit for bit; between
+              steps each rank holds at most half of its stage's params and
+              moments plus 64 B, and together what the fsdp=1 stage holds
+              up to the padding; each stage process launches flash_fwd and
+              flash_bwd 24 times a step, the peers none; every rank's
+              shards and moments are on the card. A planted control (a
+              second engine, started beside the first, whose stage 0 hands
+              its peer the gradient chunk one element on) must differ by
+              step 2. Then quantize_blocks / dequantize_blocks (the
+              in-program ZeRO's codec) on a [4, 2^20] f32 tensor on the
+              card, int8 and e4m3, bitwise equal to the CPU's. Prints the
+              step p50 beside phase 13's, each stage's gather and update
+              ms, each rank's bytes and the phase's seconds.
+
+Eleven main paths are counted: serving (phases 3-4), training (phase
+5's steps), fused training (phase 6's steps), MoE training (phase 8's
 steps), ViT and ResNet training (phases 9-10, which launch no
 hand-written kernel), GPT serving (phase 7's timed engine runs, which
 launch none either; it runs after phase 11), disagg (phase 12's raw
 run, none either: the driver's counts, zeroed just before it, and each
 stage's, which start at zero with its process), pipeline (phase 13's
 engine steps: the driver's counts, zeroed just before them, and each
-stage's) and tp (phase 14's apply on the two ranks, counted on each rank
-from just before it to just after it; the control's launches do not
-count). Every launch count is zeroed just before each and read just
+stage's), the fsdp pipeline (phase 15's engine steps, counted so, with
+its peers') and tp (phase 14's apply on the two ranks, counted on each
+rank from just before it to just after it; the control's launches do
+not count). Every launch count is zeroed just before each and read just
 after it; the kernel comparisons of phases 2 and 11, the gradient
-checks, phase 7's dense reference forward and phase 13's in-process
-reference do not count.
+checks, phase 7's dense reference forward, phase 13's in-process
+reference and phase 15's control do not count.
 The last three lines are the card (as nvidia-smi prints it), the kernels
 JSON line and the result JSON line. Without a CUDA device, or without the
 ray_tpu_torch package beside this file, the script fails before printing
@@ -609,6 +632,19 @@ ZERO_CONTROL = "ZeroUpdater without the 1/dp mean"
 # the object store holds the channels' segments (sparse until written)
 # and the dp collectives' rows
 PIPE_OBJECT_STORE = 48 << 30
+# Phase 15: the same split, microbatches, params, optimizer and steps at
+# fsdp=FSDP (each stage a gang of FSDP rank processes on the card), held
+# bit for bit to phase 13's run_reference_1f1b result; each rank holds at
+# most FSDP_BYTES_SLACK bytes over 1/FSDP of its stage's params and
+# moments between steps. The planted control (a second engine, its stage
+# 0 handing rank 1 the gradient chunk one element on) must differ by
+# step FSDP_CONTROL_STEPS. The quantizer of the in-program ZeRO on the
+# card: QUANT_SHAPE f32 at QUANT_BLOCK, bitwise the CPU's.
+FSDP = 2
+FSDP_BYTES_SLACK = 64
+FSDP_CONTROL = "rank 1's gradient chunk taken one element on"
+FSDP_CONTROL_STEPS = 2
+QUANT_SHAPE, QUANT_BLOCK = (4, 1 << 20), 256
 
 
 class SmokeFailure(Exception):
@@ -3147,6 +3183,264 @@ def _leaf_names(tree, prefix=""):
     return [prefix.rstrip("/")]
 
 
+def fsdp_offset_fault(w):
+    """On a phase-15 stage actor (rank 0 of its fsdp gang): plant
+    FSDP_CONTROL. The sharded update's scatter then hands rank 1 the
+    chunk of the flat gradient that starts one element after its own."""
+    import torch
+
+    from ray_tpu_torch.parallel.sharding import lower
+
+    sound = lower.scatter
+
+    def shifted(x, axis_name, src, shape, dtype, device=None):
+        if x is not None:
+            c = x.shape[0] // FSDP
+            x = torch.cat([x[:c], x[c + 1:], x[:1]])
+        return sound(x, axis_name, src, shape, dtype, device)
+
+    lower.scatter = shifted
+    return True
+
+
+def phase_quant_codec(device):
+    """The in-program ZeRO's quantizer on the card: quantize_blocks and
+    dequantize_blocks on a seeded QUANT_SHAPE f32 tensor, int8 and e4m3,
+    bitwise equal to the same calls on its CPU copy."""
+    import torch
+
+    from ray_tpu_torch.parallel.sharding.codec import (dequantize_blocks,
+                                                       quantize_blocks)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    x = torch.randn(QUANT_SHAPE, generator=gen, device=device)
+    x[0, :QUANT_BLOCK] = 0.0                    # an all-zero block
+    out = {}
+    for codec in ("int8", "e4m3"):
+        q, sc = quantize_blocks(x, codec, QUANT_BLOCK)
+        d = dequantize_blocks(q, sc, codec)
+        qc, scc = quantize_blocks(x.cpu(), codec, QUANT_BLOCK)
+        dc = dequantize_blocks(qc, scc, codec)
+        out[codec] = dict(
+            device=str(q.device),
+            payload_equal=bool(torch.equal(q.cpu(), qc)),
+            scales_equal=bool(torch.equal(sc.cpu().view(torch.int32),
+                                          scc.view(torch.int32))),
+            dequantized_equal=bool(torch.equal(d.cpu(), dc)),
+            max_abs_err=float((d - x).abs().max()))
+    print(f"[fsdp pipeline] quantize_blocks on {QUANT_SHAPE} f32, block "
+          f"{QUANT_BLOCK}, on the card against the CPU: {out}")
+    for codec, r in out.items():
+        check(r["device"].startswith(device.type), f"{codec}: not on "
+              f"{device}: {r}")
+        check(r["payload_equal"] and r["scales_equal"]
+              and r["dequantized_equal"], f"{codec} quantizer on the card "
+              f"differs from the CPU's: {r}")
+    return out
+
+
+def start_fsdp_engines(fns, sp, tx, tied, channel, device):
+    """Start phase 15's two engines, the checked one and the planted
+    control's, each on a thread of its own: phase 13 calls this beside
+    its own engine's start, so their processes come up together. Returns
+    (threads, {name: engine or the exception it raised, name + " s":
+    seconds})."""
+    from ray_tpu_torch.train import CompiledPipelineEngine
+
+    started = {}
+
+    def start(name):
+        t0 = time.perf_counter()
+        try:
+            started[name] = CompiledPipelineEngine(
+                fns, sp, tx, num_microbatches=PIPE_MICROBATCHES, fsdp=FSDP,
+                tied=tied, channel_bytes=channel, setup_timeout=600,
+                device=device)
+        except Exception as e:               # raised in phase 15
+            started[name] = e
+        started[name + " s"] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=start, args=(n,), daemon=True)
+               for n in ("engine", "control")]
+    for t in threads:
+        t.start()
+    return threads, started
+
+
+def stop_fsdp_engines(threads, started):
+    """Shut down what start_fsdp_engines started (idempotent)."""
+    for t in threads:
+        t.join(timeout=900)
+    for name in ("engine", "control"):
+        engine = started.get(name)
+        if engine is not None and not isinstance(engine, Exception):
+            engine.shutdown()
+
+
+def phase_fsdp_pipeline(ctx, wrappers, card, device=None):
+    """Phase 15: phase 13's GPT-2 small split at fsdp=FSDP, inside phase
+    13's runtime, on the two engines start_fsdp_engines started beside
+    phase 13's (the checked one and the planted control's). The checked
+    one takes phase 13's steps on phase 13's batch, held bit for bit to
+    phase 13's reference, with each rank's bytes, the flash launches of
+    each stage process and none in the peers; the control must differ by
+    step FSDP_CONTROL_STEPS. Then the quantizer on the card."""
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch._vendor import cloudpickle
+    from ray_tpu_torch.parallel.zero import tree_flatten
+
+    t_phase = time.perf_counter()
+    sp, mbs, tgts, steps = ctx["sp"], ctx["mbs"], ctx["tgts"], ctx["steps"]
+    counters = ctx["counters"]
+    starters, started = ctx["fsdp_starters"]
+    for t in starters:
+        t.join(timeout=900)
+    join_s = time.perf_counter() - t_phase
+    check(not any(t.is_alive() for t in starters),
+          "the fsdp engines did not start in 900 s")
+    engines = [started[n] for n in ("engine", "control")]
+    try:
+        for e in engines:
+            if isinstance(e, Exception):
+                raise e
+        engine, control = engines
+        where0 = engine.placement()[0]
+        for f in wrappers:                   # the fsdp pipeline path starts
+            f.launches = 0
+        losses, walls, reports, wheres = [], [], [], [where0]
+        for _ in range(steps):
+            losses.append(engine.step(mbs, tgts, timeout=600))
+            walls.append(engine.last_step_s)
+            reports.append(engine.last_reports)
+            wheres.append(engine.placement()[0])
+        driver_launches = {f.__name__: f.launches for f in wrappers}
+        new_params = engine.get_params()
+        opt_bytes = engine.opt_state_bytes()
+        engine.shutdown()
+        t_ctl = time.perf_counter()
+        check(ray_tpu_torch.get(control.actor_grid[0][0].mesh_run.remote(
+            cloudpickle.dumps(fsdp_offset_fault)), timeout=60),
+            "the control's fault was not planted")
+        ctl_losses = [control.step(mbs, tgts, timeout=600)
+                      for _ in range(FSDP_CONTROL_STEPS)]
+        ctl_s = time.perf_counter() - t_ctl
+    finally:
+        stop_fsdp_engines(starters, started)
+    where1 = wheres[-1]
+    ranks = [w["fsdp_ranks"] for w in where1]
+    print(f"[fsdp pipeline] {PIPE_STAGES} stages x fsdp={FSDP} up in "
+          f"{started['engine s']:.1f} s (the control's engine and phase "
+          f"13's beside it; the control's {started['control s']:.1f} s; "
+          f"waited for here {join_s:.1f} s): ranks "
+          + "; ".join(f"stage {i}: " + ", ".join(
+              f"pid {r['pid']} {r['device']} shards+moments on "
+              f"{r['tensor_devices']} {r['shard_bytes']} + {r['opt_bytes']} "
+              f"B, {r['memory_allocated'] / 2**30:.2f} GiB allocated"
+              for r in rs) for i, rs in enumerate(ranks)))
+    pids = [r["pid"] for rs in ranks for r in rs]
+    check(len(set(pids)) == PIPE_STAGES * FSDP and os.getpid() not in pids,
+          f"the ranks do not run in {PIPE_STAGES * FSDP} worker processes: "
+          f"{pids}")
+    check(all(w["device"].startswith("cuda") for w in where1)
+          and all(r["device"].startswith("cuda")
+                  and r["tensor_devices"]
+                  and all(d.startswith("cuda") for d in r["tensor_devices"])
+                  for rs in ranks for r in rs),
+          f"a rank's shards or moments are not on the card: {ranks}")
+
+    # launches: the stage processes as in phase 13; none in the peers
+    per_step = [[{n: now["kernel_launches"][f.__name__]
+                  - was["kernel_launches"][f.__name__]
+                  for n, f in counters.items()}
+                 for was, now in zip(w0, w1)]
+                for w0, w1 in zip(wheres, wheres[1:])]
+    stage_launches = [w["kernel_launches"] for w in where1]
+    peer_launches = [r["kernel_launches"] for rs in ranks for r in rs[1:]]
+    print(f"[fsdp pipeline] flash launches per step and stage "
+          f"{per_step[-1]}; driver {driver_launches}; stages since start "
+          f"{stage_launches}; peers since start {peer_launches}")
+    check(all(d == {n: ctx["per_step_want"] for n in counters}
+              for step in per_step for d in step),
+          f"launches per step and stage {per_step}, expected "
+          f"{ctx['per_step_want']} of each flash kernel")
+    check(not any(driver_launches.values()),
+          f"the driver launched {driver_launches} on the fsdp path")
+    check(not any(v for p in peer_launches for v in p.values()),
+          f"a peer launched a kernel: {peer_launches}")
+    check(not any(s[f.__name__] for s in stage_launches
+                  for f in wrappers[2:]),
+          f"a stage launched a fused kernel: {stage_launches}")
+
+    # the trajectory, bit for bit against phase 13's reference
+    ref_losses, ref_params = ctx["ref_losses"], ctx["ref_params"]
+    diff = first_difference(new_params, ref_params)
+    ctl_equal = ctl_losses == ref_losses[:FSDP_CONTROL_STEPS]
+    print(f"[fsdp pipeline] losses {losses}; phase 13's reference "
+          f"{ref_losses}; equal {losses == ref_losses}; final params equal "
+          f"{diff is None} (first differing: {diff}); control "
+          f"'{FSDP_CONTROL}' {ctl_losses}: equal {ctl_equal} ({ctl_s:.1f} s)")
+    check(losses == ref_losses, f"the fsdp engine's losses {losses} differ "
+          f"from the reference's {ref_losses}")
+    check(diff is None, f"the fsdp engine's final params differ from the "
+          f"reference's at {diff}")
+    check(not ctl_equal, f"control '{FSDP_CONTROL}' passes the trajectory "
+          f"equality by step {FSDP_CONTROL_STEPS}")
+
+    # bytes: each rank at most 1/FSDP of its stage, the sum the fsdp=1
+    # stage's up to the padding and Adam's per-tensor step counts
+    per_rank = [r["fsdp_bytes_per_chip"]
+                for r in sorted(reports[-1], key=lambda r: r["stage"])]
+    sums = []
+    for i, per in enumerate(per_rank):
+        total = sum(per.values())
+        sums.append(total)
+        n_leaves = len(tree_flatten(sp[i])[0])
+        numel = sum(t.numel() for t in tree_flatten(sp[i])[0])
+        pad = (-numel) % FSDP
+        fsdp1 = ctx["fsdp1_bytes"][i]
+        print(f"[fsdp pipeline] stage {i}: bytes a rank {per} (1/{FSDP} of "
+              f"{total} is {total / FSDP:.0f}); fsdp=1 stage {fsdp1} B "
+              f"(params + moments), padding {pad} elements, {n_leaves} "
+              f"leaves; optimizer bytes over the gang {opt_bytes[i]}")
+        check(len(per) == FSDP
+              and max(per.values()) <= total / FSDP + FSDP_BYTES_SLACK,
+              f"stage {i}'s ranks hold {per}: more than 1/{FSDP} of "
+              f"{total} + {FSDP_BYTES_SLACK}")
+        check(abs(total - fsdp1) <= 3 * 4 * pad + 4 * (n_leaves + FSDP),
+              f"stage {i}: the ranks hold {total} B in all, the fsdp=1 "
+              f"stage {fsdp1} B")
+
+    # readings
+    timed = walls[PIPE_WARMUP:]
+    step_p50 = statistics.median(timed)
+    last = sorted(reports[-1], key=lambda r: r["stage"])
+    gather_ms = [r["sync_breakdown"]["gather_ms"] for r in last]
+    update_ms = [r["update_ms"] for r in last]
+    peaks = [r["max_memory_allocated"] for rs in ranks for r in rs]
+    print(f"[fsdp pipeline] {card}: step wall "
+          f"{[round(t * 1e3, 2) for t in walls]} ms (p50 of the "
+          f"{PIPE_STEPS} timed {step_p50 * 1e3:.2f} ms; phase 13's fsdp=1 "
+          f"p50 {ctx['step_p50'] * 1e3:.2f} ms); a stage's gather "
+          f"{gather_ms} ms and update (the scatter and the shard steps) "
+          f"{update_ms} ms in the last step; peak "
+          f"{[round(p / 2**30, 2) for p in peaks]} GiB a rank")
+    quant = phase_quant_codec(torch.device("cuda" if device is None
+                                           else device))
+    phase_s = time.perf_counter() - t_phase
+    print(f"[fsdp pipeline] {card}: the phase took {phase_s:.1f} s")
+    return dict(losses=losses, step_wall_s=walls, step_p50_s=step_p50,
+                gather_ms=gather_ms, update_ms=update_ms,
+                bytes_per_rank=per_rank, bytes_sums=sums,
+                control_losses=ctl_losses, control_s=ctl_s,
+                start_s=started["engine s"], peak_bytes=peaks,
+                stage_launches=stage_launches, peer_launches=peer_launches,
+                driver_launches=driver_launches, quant=quant,
+                phase_s=phase_s, card=card)
+
+
 def phase_pipeline(wrappers, card, device=None):
     """Pipeline-parallel GPT-2 small training over compiled graphs (phase
     13 of the module docstring). The driver's launch counts of
@@ -3191,6 +3485,7 @@ def phase_pipeline(wrappers, card, device=None):
     per_step_want = c.n_layer // PIPE_STAGES * PIPE_MICROBATCHES
 
     ray_tpu_torch.init(num_cpus=16, object_store_memory=PIPE_OBJECT_STORE)
+    fsdp_starters = None
     try:
         # the two stages start in their worker processes (a torch import,
         # a CUDA context, their chunk's params through the object store)
@@ -3210,6 +3505,9 @@ def phase_pipeline(wrappers, card, device=None):
 
         starter = threading.Thread(target=start_engine, daemon=True)
         starter.start()
+        # phase 15's engines come up beside this one
+        fsdp_starters = start_fsdp_engines(fns, sp, tx, tied, channel,
+                                           device)
         ref_losses, ref_params = run_reference_1f1b(
             fns, sp, tx, [(mbs, tgts)] * steps, tied=tied, device=device)
         ctl_losses, _ = run_reference_1f1b(
@@ -3234,6 +3532,7 @@ def phase_pipeline(wrappers, card, device=None):
             sent1 = channel_bytes_by_edge()
             where1 = wheres[-1]
             new_params = engine.get_params()
+            opt1 = engine.opt_state_bytes()
         finally:
             engine.shutdown()
         # the reference's step time, with nothing else on the card: the
@@ -3340,6 +3639,14 @@ def phase_pipeline(wrappers, card, device=None):
                   + f" ms; peak {peaks[i] / 2**30:.2f} GiB allocated")
         print(f"[pipeline] bytes a step by edge: {dict(sorted(edge_bytes.items()))}")
         pipeline_s = time.perf_counter() - t_phase
+        fsdp = phase_fsdp_pipeline(dict(
+            sp=sp, mbs=mbs, tgts=tgts, steps=steps, counters=counters,
+            per_step_want=per_step_want, ref_losses=ref_losses,
+            ref_params=ref_params, step_p50=step_p50,
+            fsdp1_bytes=[w["param_bytes"] + o
+                         for w, o in zip(where1, opt1)],
+            fsdp_starters=fsdp_starters),
+            wrappers, card, device)
         del ref_params, new_params
         gc.collect()
         torch.cuda.empty_cache()
@@ -3418,11 +3725,14 @@ def phase_pipeline(wrappers, card, device=None):
                   for x in ratios), f"ZeRO opt bytes over replicated "
               f"{ratios} outside {ZERO_OPT_BYTES}")
     finally:
+        if fsdp_starters is not None:        # in case phase 15 never ran
+            stop_fsdp_engines(*fsdp_starters)
         ray_tpu_torch.shutdown()
     phase_s = time.perf_counter() - t_phase
     print(f"[pipeline] {card}: the phase took {phase_s:.1f} s: "
           f"the P={PIPE_STAGES} engine and its reference {pipeline_s:.1f}, "
-          f"the dp={PIPE_DP} engines {dp_s:.1f}")
+          f"phase 15 (fsdp={FSDP}) {fsdp['phase_s']:.1f}, the dp={PIPE_DP} "
+          f"engines {dp_s:.1f}")
     launches = {n: sum(s[f.__name__] for s in stage_launches)
                 + driver_launches[f.__name__] for n, f in counters.items()}
     return dict(losses=losses, reference_losses=ref_losses,
@@ -3437,7 +3747,7 @@ def phase_pipeline(wrappers, card, device=None):
                 zero={n: {k: v for k, v in r.items()} for n, r in runs.items()},
                 zero_loss1_err=err, zero_control_err=ctl_err,
                 zero_opt_ratios=ratios, dp_s=dp_s, phase_s=phase_s,
-                card=card)
+                fsdp=fsdp, card=card)
 
 
 def tp_sync(device):
@@ -3866,6 +4176,13 @@ def main() -> int:
             counts[wrapper.__name__]
             for counts in disagg["stage_launches"].values())
 
+    def fsdp_launches(wrapper):
+        # the driver's count and every rank's on the fsdp pipeline path
+        f = pipeline["fsdp"]
+        return f["driver_launches"][wrapper.__name__] + sum(
+            counts[wrapper.__name__]
+            for counts in f["stage_launches"] + f["peer_launches"])
+
     fwd_launches = dict(serving=serving_launches,
                         training=training["launches"]["flash_fwd"],
                         training_fused=training_fused["launches"]["flash_fwd"],
@@ -3874,12 +4191,14 @@ def main() -> int:
                             flash_attention_fwd.__name__],
                         disagg=disagg_launches(flash_attention_fwd),
                         pipeline=pipeline["launches"]["flash_fwd"],
+                        pipeline_fsdp=fsdp_launches(flash_attention_fwd),
                         tp=tp_serving["launches"])
     bwd_launches = dict(training=training["launches"]["flash_bwd"],
                         training_fused=training_fused["launches"]["flash_bwd"],
                         moe_training=moe_training["launches"]["flash_bwd"],
                         disagg=disagg_launches(flash_attention_bwd),
-                        pipeline=pipeline["launches"]["flash_bwd"])
+                        pipeline=pipeline["launches"]["flash_bwd"],
+                        pipeline_fsdp=fsdp_launches(flash_attention_bwd))
 
     def pipeline_launches(wrapper):
         # the driver's count and every stage's on the pipeline path
@@ -3938,6 +4257,9 @@ def main() -> int:
                     ln_matmul_fwd if name == "ln_matmul"
                     else matmul_residual_fwd),
                 "pipeline": pipeline_launches(
+                    ln_matmul_fwd if name == "ln_matmul"
+                    else matmul_residual_fwd),
+                "pipeline_fsdp": fsdp_launches(
                     ln_matmul_fwd if name == "ln_matmul"
                     else matmul_residual_fwd)},
             "max_abs_err": bf16_max_err(rows),

@@ -12,11 +12,13 @@ ray_tpu/parallel).
   ranks of the world process group) and the logical-axis rules;
 - ``mesh_group``: ``MeshGroup``, a gang of rank actors that forms a
   process group;
-- ``sharding``: ``MeshOwner``, ``SpecLayout`` and the lowering helpers.
+- ``sharding``: ``MeshOwner``, ``SpecLayout``, the lowering helpers and
+  the fsdp plane (``FsdpPlane``); ``zero.make_zero_update_spmd`` is the
+  ZeRO update over a mesh axis of gang ranks.
 
-The in-program fsdp plane, ``make_zero_update_spmd`` and the in-program
-pipeline wait for ROADMAP A4.2 and A4.3. The names below load on first
-use, so a worker that only decodes a channel's codec never imports torch.
+The in-program pipeline waits for ROADMAP A4.3. The names below load on
+first use, so a worker that only decodes a channel's codec never imports
+torch.
 """
 import importlib
 
@@ -28,7 +30,7 @@ _EXPORTS = {
     "reducescatter": "collective", "broadcast": "collective",
     "reduce": "collective", "send": "collective", "recv": "collective",
     "barrier": "collective",
-    "ZeroUpdater": "zero",
+    "ZeroUpdater": "zero", "make_zero_update_spmd": "zero",
     "schedule_1f1b": "pipeline", "schedule_interleaved_1f1b": "pipeline",
     "MeshSpec": "mesh", "build_mesh": "mesh", "virtual_mesh": "mesh",
     "local_mesh": "mesh", "named_sharding": "mesh",

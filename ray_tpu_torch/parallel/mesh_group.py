@@ -121,7 +121,10 @@ class MeshGroup:
 
     worker_cls must mix in MeshWorkerMixin. ``device_type`` goes to every
     rank's ``setup_mesh`` ("cpu" ranks in the tests; the default is the
-    CUDA card).
+    CUDA card). ``workers`` forms the gang over actors the caller made and
+    placed (each mixing in MeshWorkerMixin; rank i is ``workers[i]``)
+    instead of spawning ``num_workers`` of ``worker_cls``: the pipeline
+    engine forms each fsdp stage's gang so, its stage actor as rank 0.
     """
 
     def __init__(self, num_workers: int,
@@ -130,25 +133,33 @@ class MeshGroup:
                  devices_per_process: Optional[int] = None,
                  resources_per_worker: Optional[dict] = None,
                  coordinator: Optional[str] = None,
-                 device_type: Optional[str] = None):
+                 device_type: Optional[str] = None,
+                 workers: Optional[List[Any]] = None):
         self.num_workers = num_workers
         self.spec = spec or MeshSpec()
-        cls = worker_cls or _DefaultMeshWorker
-        res = dict(resources_per_worker or {"CPU": 1.0})
-        bundles = [dict(res) for _ in range(num_workers)]
-        self._pg = placement_group(bundles, strategy="SPREAD")
-        if not self._pg.ready():
-            raise TimeoutError("MeshGroup placement group not ready")
-        remote_cls = ray_tpu_torch.remote(cls)
-        self.workers = [
-            remote_cls.options(
-                num_cpus=res.get("CPU", 1.0),
-                resources={k: v for k, v in res.items() if k != "CPU"},
-                placement_group=self._pg,
-                placement_group_bundle_index=i,
-            ).remote()
-            for i in range(num_workers)
-        ]
+        self._pg = None
+        if workers is not None:
+            if len(workers) != num_workers:
+                raise ValueError(f"{len(workers)} workers for a gang of "
+                                 f"{num_workers}")
+            self.workers = list(workers)
+        else:
+            cls = worker_cls or _DefaultMeshWorker
+            res = dict(resources_per_worker or {"CPU": 1.0})
+            bundles = [dict(res) for _ in range(num_workers)]
+            self._pg = placement_group(bundles, strategy="SPREAD")
+            if not self._pg.ready():
+                raise TimeoutError("MeshGroup placement group not ready")
+            remote_cls = ray_tpu_torch.remote(cls)
+            self.workers = [
+                remote_cls.options(
+                    num_cpus=res.get("CPU", 1.0),
+                    resources={k: v for k, v in res.items() if k != "CPU"},
+                    placement_group=self._pg,
+                    placement_group_bundle_index=i,
+                ).remote()
+                for i in range(num_workers)
+            ]
         try:
             if coordinator is None:
                 # rank 0 hosts the rendezvous store: a port free on its
@@ -184,10 +195,11 @@ class MeshGroup:
                 ray_tpu_torch.kill(w)
             except Exception:
                 pass
-        try:
-            remove_placement_group(self._pg)
-        except Exception:
-            pass
+        if self._pg is not None:
+            try:
+                remove_placement_group(self._pg)
+            except Exception:
+                pass
 
 
 class _DefaultMeshWorker(MeshWorkerMixin):

@@ -12,29 +12,16 @@
   owner-bound axes) and :func:`sharded_init`.
 - tensor_parallel.py — the explicit (Megatron) tensor-parallel split of
   the serving models over a tp group, which the tp engine runs.
-
-``FsdpPlane`` / ``FsdpParams`` (the in-program fsdp plane) are not ported
-yet (ROADMAP A4.2) and raise.
+- :class:`FsdpPlane` / :class:`FsdpParams` (fsdp.py) — sharded parameter
+  and optimizer storage over a gang's fsdp axis (ZeRO-3 style), what a
+  pipeline stage with ``fsdp > 1`` runs on.
+- codec.py — the quantized reduce-scatter of ``make_zero_update_spmd``
+  (``quantize_blocks``, ``quantized_scatter_mean``, ...).
 """
+from .fsdp import FsdpParams, FsdpPlane
 from .layout import DEFAULT_LAYOUT, LOGICAL_TO_AXES, SpecLayout, prune_spec
 from .lower import lower_jit, lower_shard_map, sharded_init
 from .owner import MeshOwner
-
-
-class _NotPorted:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__}, the in-program fsdp plane, is not "
-            "ported yet (ROADMAP.md A4.2)")
-
-
-class FsdpPlane(_NotPorted):
-    """Not ported yet (ROADMAP A4.2)."""
-
-
-class FsdpParams(_NotPorted):
-    """Not ported yet (ROADMAP A4.2)."""
-
 
 __all__ = [
     "DEFAULT_LAYOUT", "FsdpParams", "FsdpPlane", "LOGICAL_TO_AXES",

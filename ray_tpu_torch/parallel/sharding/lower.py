@@ -9,8 +9,11 @@
   returned as this rank's shards.
 - :func:`lower_shard_map` — the manual plane: the body runs on this
   rank's shards and its collectives (:func:`psum`, :func:`all_gather`,
-  :func:`axis_index`) name axes the owner's mesh binds; an axis the call
-  does not bind raises.
+  :func:`psum_scatter`, :func:`all_to_all`, :func:`axis_index`, and the
+  one-rank :func:`gather`, :func:`scatter` and object collectives that
+  JAX has no use for) name axes the owner's mesh binds; an axis the call
+  does not bind raises. The collectives run over gloo: a CUDA tensor
+  goes through the host and its result comes back to its device.
 - :func:`sharded_init` — each rank materializes its shards from a seeded
   full init, one tensor at a time, so no rank holds the whole tree.
 
@@ -149,13 +152,18 @@ def _group(axis_name: str):
     return owner.mesh.get_group(axis_name)
 
 
+def _host(x):
+    """``x`` on the CPU, where gloo runs every collective."""
+    return x.detach().cpu() if x.device.type != "cpu" else x
+
+
 def psum(x, axis_name: str):
     """Sum of ``x`` over the ranks of ``axis_name`` (jax.lax.psum)."""
     import torch.distributed as dist
 
-    out = x.clone()
+    out = _host(x).clone()
     dist.all_reduce(out, group=_group(axis_name))
-    return out
+    return out.to(x.device)
 
 
 def all_gather(x, axis_name: str, axis: int = 0, tiled: bool = False):
@@ -165,9 +173,159 @@ def all_gather(x, axis_name: str, axis: int = 0, tiled: bool = False):
     import torch.distributed as dist
 
     group = _group(axis_name)
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=axis) if tiled else torch.stack(parts, axis)
+    h = _host(x).contiguous()
+    parts = [torch.empty_like(h) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, h, group=group)
+    out = torch.cat(parts, dim=axis) if tiled else torch.stack(parts, axis)
+    return out.to(x.device)
+
+
+def all_to_all(x, axis_name: str, split_axis: int, concat_axis: int,
+               tiled: bool = False):
+    """jax.lax.all_to_all: ``x`` split along ``split_axis`` into one piece
+    per rank of ``axis_name``, piece j sent to rank j, and the pieces this
+    rank receives joined in rank order along ``concat_axis``. Untiled,
+    ``split_axis`` must have the axis size and is dropped, and the pieces
+    are stacked on a new ``concat_axis``; tiled, they are concatenated."""
+    import torch
+    import torch.distributed as dist
+
+    group = _group(axis_name)
+    n = dist.get_world_size(group)
+    h = _host(x)
+    if tiled:
+        if h.shape[split_axis] % n:
+            raise ValueError(f"all_to_all: dimension {split_axis} of size "
+                             f"{h.shape[split_axis]} does not split over "
+                             f"{n} ranks of {axis_name!r}")
+        pieces = list(h.chunk(n, dim=split_axis))
+    else:
+        if h.shape[split_axis] != n:
+            raise ValueError(f"all_to_all: untiled dimension {split_axis} "
+                             f"has size {h.shape[split_axis]}, not the "
+                             f"{n} ranks of {axis_name!r}")
+        pieces = list(h.unbind(split_axis))
+    pieces = [p.contiguous() for p in pieces]
+    got = [torch.empty_like(p) for p in pieces]
+    dist.all_to_all(got, pieces, group=group)
+    out = torch.cat(got, dim=concat_axis) if tiled \
+        else torch.stack(got, concat_axis)
+    return out.to(x.device)
+
+
+def psum_scatter(x, axis_name: str, scatter_dimension: int = 0,
+                 tiled: bool = False):
+    """jax.lax.psum_scatter: the sum of ``x`` over the ranks of
+    ``axis_name``, of which this rank keeps piece #index along
+    ``scatter_dimension`` (tiled: a chunk of the dimension; untiled: the
+    dimension has the axis size and is dropped). Gloo would sum in
+    transit in its own order, so this is an :func:`all_to_all` and then
+    a sum in rank order, in f32 at least: every rank's result is the
+    sequential sum, and deterministic."""
+    import torch
+    import torch.distributed as dist
+
+    if tiled:
+        n = dist.get_world_size(_group(axis_name))
+        if x.shape[scatter_dimension] % n:
+            raise ValueError(f"psum_scatter: dimension {scatter_dimension} "
+                             f"of size {x.shape[scatter_dimension]} does "
+                             f"not split over {n} ranks of {axis_name!r}")
+        x_split = x.unflatten(scatter_dimension, (n, -1))
+    else:
+        x_split = x
+    # got[i]: rank i's piece for this rank
+    got = all_to_all(x_split, axis_name, scatter_dimension, 0, tiled=False)
+    acc_dtype = torch.promote_types(got.dtype, torch.float32) \
+        if got.is_floating_point() else got.dtype
+    acc = got[0].to(acc_dtype, copy=True)
+    for part in got[1:]:
+        acc += part
+    return acc.to(x.dtype)
+
+
+def gather(x, axis_name: str, dst: int, axis: int = 0, tiled: bool = False):
+    """Every rank's ``x`` along ``axis_name`` onto the rank of index
+    ``dst`` only (stacked on ``axis``, or concatenated when ``tiled``, as
+    :func:`all_gather`); the other ranks get None."""
+    import torch
+    import torch.distributed as dist
+
+    group = _group(axis_name)
+    h = _host(x).contiguous()
+    me = axis_index(axis_name) == dst
+    parts = [torch.empty_like(h) for _ in range(
+        dist.get_world_size(group))] if me else None
+    dist.gather(h, parts, dst=dist.get_global_rank(group, dst), group=group)
+    if not me:
+        return None
+    out = torch.cat(parts, dim=axis) if tiled else torch.stack(parts, axis)
+    return out.to(x.device)
+
+
+def scatter(x, axis_name: str, src: int, shape, dtype, device=None):
+    """The rank of index ``src`` splits ``x`` into equal chunks along
+    dimension 0, one per rank of ``axis_name``, and each rank gets its
+    own (of ``shape`` and ``dtype``, on ``device``; the default is the
+    CPU). ``x`` is read on ``src`` only."""
+    import torch
+    import torch.distributed as dist
+
+    group = _group(axis_name)
+    n = dist.get_world_size(group)
+    out = torch.empty(shape, dtype=dtype)
+    pieces = None
+    if axis_index(axis_name) == src:
+        pieces = [p.contiguous() for p in _host(x).chunk(n)]
+        if len(pieces) != n or any(p.shape != out.shape for p in pieces):
+            raise ValueError(f"scatter: {tuple(x.shape)} does not split "
+                             f"into {n} chunks of {tuple(shape)}")
+    dist.scatter(out, pieces, src=dist.get_global_rank(group, src),
+                 group=group)
+    return out if device is None else out.to(device)
+
+
+def broadcast_object(obj, axis_name: str, src: int):
+    """The picklable ``obj`` of the rank of index ``src``, on every rank
+    of ``axis_name``."""
+    import torch.distributed as dist
+
+    group = _group(axis_name)
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, src),
+                               group=group)
+    return box[0]
+
+
+def gather_objects(obj, axis_name: str, dst: Optional[int] = None):
+    """Every rank's picklable ``obj``, in rank order: on every rank
+    (``dst`` None) or on the rank of index ``dst`` only (None elsewhere)."""
+    import torch.distributed as dist
+
+    group = _group(axis_name)
+    n = dist.get_world_size(group)
+    if dst is None:
+        out = [None] * n
+        dist.all_gather_object(out, obj, group=group)
+        return out
+    me = axis_index(axis_name) == dst
+    out = [None] * n if me else None
+    dist.gather_object(obj, out, dst=dist.get_global_rank(group, dst),
+                       group=group)
+    return out
+
+
+def scatter_objects(objs, axis_name: str, src: int):
+    """Rank ``src``'s list of picklable objects, one per rank of
+    ``axis_name`` in rank order: each rank gets its own."""
+    import torch.distributed as dist
+
+    group = _group(axis_name)
+    box = [None]
+    dist.scatter_object_list(
+        box, objs if axis_index(axis_name) == src else None,
+        src=dist.get_global_rank(group, src), group=group)
+    return box[0]
 
 
 def axis_index(axis_name: str) -> int:

@@ -14,8 +14,9 @@ sharding, so the sharded update is numerically the replicated update.
 :class:`ZeroUpdater` runs across actor processes over the host collective
 (``parallel/collective.py``): the compiled-graph pipeline engine
 (``train/pipeline_cgraph.py``) uses it between the dp replicas of one
-stage. The in-program plane over a mesh axis (``make_zero_update_spmd``)
-is not here: it waits for the in-program fsdp plane (ROADMAP A4.2).
+stage. :func:`make_zero_update_spmd` is the same update over a mesh axis
+of gang ranks (``parallel/mesh_group.py``), where the JAX package runs it
+inside one jitted program over the chips of a mesh.
 
 Both work on the FLAT parameter vector: parameter trees (nested dicts,
 lists and tuples of tensors; dict keys in sorted order, as JAX orders
@@ -42,9 +43,10 @@ import torch
 
 __all__ = [
     "TreeSpec", "tree_flatten", "tree_unflatten", "tree_map",
-    "flatten_tree", "unflatten_tree", "shard_bounds", "tree_bytes",
-    "ZeroUpdater", "merge_opt_shards", "split_opt_state",
-    "flatten_opt_state", "unflatten_opt_state",
+    "flatten_tree", "unflatten_tree", "pad_flat", "shard_bounds",
+    "tree_bytes",
+    "ZeroUpdater", "make_zero_update_spmd", "merge_opt_shards",
+    "split_opt_state", "flatten_opt_state", "unflatten_opt_state",
 ]
 
 
@@ -137,6 +139,14 @@ def unflatten_tree(flat: torch.Tensor, spec: TreeSpec):
         leaves.append(flat[off:off + n].reshape(shape))
         off += n
     return tree_unflatten(spec.treedef, leaves)
+
+
+def pad_flat(flat: torch.Tensor, n: int) -> torch.Tensor:
+    """``flat`` zero-padded at the end to ``n`` elements (the sharded
+    planes pad the flat vector so its chunks tile the axis exactly)."""
+    if flat.numel() == n:
+        return flat
+    return torch.cat([flat, flat.new_zeros(n - flat.numel())])
 
 
 def shard_bounds(n: int, world: int) -> List[Tuple[int, int]]:
@@ -417,3 +427,105 @@ class ZeroUpdater:
         self.sync_s += self.last_rs_s + self.last_ag_s
         full = torch.cat(parts).to(device=dev, dtype=dtype)
         return unflatten_tree(full, self._spec)
+
+
+# ---------------------------------------------------------------------------
+# over a mesh axis of gang ranks: psum_scatter / all_gather in a
+# shard_map body (parallel/sharding/lower.py)
+# ---------------------------------------------------------------------------
+
+
+def make_zero_update_spmd(tx, mesh, axis: str = "dp",
+                          grad_codec: Optional[str] = None,
+                          codec_block: int = 256
+                          ) -> Tuple[Callable, Callable]:
+    """Build the sharded update over a mesh axis: ``(init_fn, update_fn)``.
+    ``mesh`` is a ``MeshOwner`` (or a torch ``DeviceMesh``) over gang
+    ranks, every one of which calls both functions collectively.
+
+    ``grad_codec`` ("int8"/"e4m3") swaps the gradient ``psum_scatter``
+    for the quantized scatter (``parallel/sharding/codec.py``,
+    ``quantized_scatter_mean``): per-block absmax quantize -> all_to_all ->
+    dequantize -> f32 sum, so the wire carries about a quarter of the
+    gradient bytes; the parameter all-gather stays full precision.
+    ``grad_codec=None`` is the exact update.
+
+    - ``init_fn(params)`` -> this rank's optimizer state: ``tx`` built over
+      its 1/world chunk of the flat parameter vector only.
+    - ``update_fn(params, grads, opt_state)`` -> ``(new_params,
+      opt_state)``. Where the JAX package passes ``grads_stacked``, a
+      leading axis of per-replica gradients sharded over ``axis``, each
+      rank of the port passes its OWN gradient tree. ``psum_scatter``
+      hands each rank its chunk of the cross-replica sum (a sequential
+      sum in rank order), the optimizer steps that chunk of ``params``
+      (re-read every update), and a tiled ``all_gather`` rebuilds the full
+      parameter vector: no rank holds the full optimizer state. The state
+      steps in place and is returned.
+
+    The flat vector is zero-padded to a multiple of the axis size so the
+    chunks tile exactly.
+    """
+    from . import quant as _quant
+    from .sharding import lower
+    from .sharding.owner import MeshOwner
+
+    _quant.check_codec(grad_codec)
+    owner = mesh if isinstance(mesh, MeshOwner) else MeshOwner.from_mesh(mesh)
+    world = owner.axis_size(axis)
+
+    def _pad(flat):
+        return pad_flat(flat, flat.numel() + (-flat.numel()) % world)
+
+    def _shard_map(fn, *args):
+        return lower.lower_shard_map(
+            fn, owner, in_specs=tuple(None for _ in args), out_specs=None,
+            axis_names=frozenset({axis}))(*args)
+
+    def init_fn(params):
+        flat = _pad(flatten_tree(params)[0])
+        chunk = flat.numel() // world
+
+        def _init_local(p_local):
+            lo = lower.axis_index(axis) * chunk
+            return tx([p_local[lo:lo + chunk].clone()])
+
+        return _shard_map(_init_local, flat)
+
+    def update_fn(params, grads, opt_state):
+        flat_p, spec = flatten_tree(params)
+        flat_p = _pad(flat_p)
+        chunk = flat_p.numel() // world
+        flat_g, gspec = flatten_tree(grads)
+        if gspec.size != spec.size:
+            raise ValueError(f"grad tree size {gspec.size} != param tree "
+                             f"size {spec.size}")
+        flat_g = _pad(flat_g)
+        p_shard = opt_state.param_groups[0]["params"][0]
+
+        def _upd_local(p_local, g_local):
+            # psum_scatter hands back chunk #idx of the cross-replica SUM;
+            # with a codec the quantized body decomposes it so only narrow
+            # payloads cross the wire (f32 sum after dequantize)
+            if grad_codec is None:
+                g_shard = lower.psum_scatter(g_local, axis, tiled=True) \
+                    / world
+            else:
+                from .sharding.codec import quantized_scatter_mean
+
+                g_shard = quantized_scatter_mean(
+                    g_local, axis, world, codec=grad_codec,
+                    block=codec_block)
+            lo = lower.axis_index(axis) * chunk
+            with torch.no_grad():
+                p_shard.copy_(p_local[lo:lo + chunk])
+            p_shard.grad = g_shard.to(device=p_shard.device,
+                                      dtype=p_shard.dtype)
+            opt_state.step()
+            p_shard.grad = None
+            return lower.all_gather(p_shard.detach(), axis, tiled=True)
+
+        new_flat = _shard_map(_upd_local, flat_p, flat_g)
+        return (unflatten_tree(new_flat[:spec.size].to(flat_p.device),
+                               spec), opt_state)
+
+    return init_fn, update_fn

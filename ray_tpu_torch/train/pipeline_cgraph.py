@@ -31,6 +31,21 @@ parameter shard with 1/dp of the optimizer state, and all-gathers fresh
 params (parallel/zero.ZeroUpdater; ``zero_update=False`` falls back to
 the replicated allreduce update for A/B).
 
+Sharded storage (``fsdp > 1``, parallel/sharding/fsdp.py): each stage's
+chunk params and optimizer moments live 1/fsdp per rank, the forward
+gathers them exactly once a step, and the update is shard-local, so the
+loss trajectory is bit-identical to fsdp=1's. Where the JAX package's
+fsdp axis is chips inside the stage's process, a rank of the port is a
+process: an fsdp stage is a gang (parallel/mesh_group.MeshGroup) of the
+stage actor, rank 0, and ``fsdp - 1`` peer actors in a gloo process
+group. The stage alone runs the forward and backward (on one card a
+replicated compute in every peer would only repeat the device work); it
+gathers the params onto itself when a step first needs them, and at the
+update it hands each peer its chunk of the gradient (one scatter a step),
+so the arithmetic stays shard-local. The peers hold shards and moments
+only. dp composes outside: the stages' host collective syncs the full
+gradient first. That is pp x dp x fsdp, with P * dp * fsdp processes.
+
 The chunk programs are torch autograd programs, where the JAX package
 jits a forward that returns a pullback. A forward runs the chunk on leaf
 parameters that require grad (and, for a floating input, on
@@ -63,10 +78,10 @@ engine — ``step()`` raises ``CompiledGraphClosedError`` — and
 ``shutdown()`` releases every pre-allocated channel segment.
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that brings them: ``fsdp > 1`` (the fsdp plane, A4.2), the data feed
-(``attach_feed`` / ``detach_feed`` / ``feed_stats``: the data plane),
-and elastic capacity (``enable_elastic`` / ``resize``: the autoscaler,
-with the serve control plane in A7). ``reshard_checkpoint`` is here.
+that brings them: the data feed (``attach_feed`` / ``detach_feed`` /
+``feed_stats``: the data plane), and elastic capacity
+(``enable_elastic`` / ``resize``: the autoscaler, with the serve control
+plane in A7). ``reshard_checkpoint`` is here.
 """
 from __future__ import annotations
 
@@ -85,6 +100,7 @@ from ray_tpu_torch.core.placement_group import (placement_group,
 from .._device import resolve_device
 from ..exceptions import (CompiledGraphClosedError, CompiledGraphError,
                           GetTimeoutError)
+from ..parallel.mesh_group import MeshWorkerMixin
 from ..parallel.pipeline import schedule_interleaved_1f1b
 from ..parallel.zero import (host_state_dict, optimizer_state_bytes,
                              tree_bytes, tree_flatten, tree_map,
@@ -101,6 +117,10 @@ _H_STEP = _metrics.Histogram(
     boundaries=_metrics.DEFAULT_BOUNDARIES, tag_keys=("engine",))
 
 DEFAULT_CHANNEL_BYTES = 1 << 20
+# how long a stage waits for one of its fsdp peers to finish its part of
+# a gang operation (the gang's collectives themselves time out with the
+# process group, after mesh_group's 300 s)
+_GANG_TIMEOUT_S = 300.0
 
 
 def _host(tree):
@@ -306,8 +326,10 @@ def reshard_checkpoint(ckpt: dict, dp: int) -> dict:
     all-gathers/replicates them), so row 0's copy seeds every new row.
     Optimizer state moves by kind:
 
-    - ``full`` (replicated ``state_dict``) / ``none``: row 0 replicates
-      to every new row; growing a ``full``-kind state under a
+    - ``full`` (replicated ``state_dict``) / ``fsdp`` (each chunk's
+      state over its whole padded flat vector, identical across dp rows)
+      / ``none``: row 0 replicates to every new row, so dp resizes around
+      the fsdp plane; growing a ``full``-kind state under a
       ``zero_update`` engine converts it to flat ZeRO shards
       (:func:`parallel.zero.flatten_opt_state`).
     - ``zero``: per-rank flat shards merge in rank order and re-split
@@ -364,7 +386,7 @@ def reshard_checkpoint(ckpt: dict, dp: int) -> dict:
                 new_dp, spec.size)
             new_kind = "zero"
         else:
-            # none / replicated-full: dp rows are identical copies
+            # none / fsdp / replicated-full: dp rows are identical copies
             opts = [row0["opt"]] * new_dp
             new_kind = kind
         for r in range(new_dp):
@@ -392,12 +414,121 @@ def _kernel_launches() -> Dict[str, int]:
         matmul_residual_fwd)}
 
 
-class _CGStage:
+class _FsdpRank(MeshWorkerMixin):
+    """What every rank of an fsdp stage's gang runs: the stage actor (rank
+    0, which alone holds gradients and full params) and its peers alike.
+    Each ``fsdp_*`` method is collective: the stage runs it on every rank
+    of its gang, in the same order (``_CGStage._on_gang``), passing the
+    data that rank 0 alone has; the peers pass None."""
+
+    def _fsdp_init(self, virtual: int, tx, device: torch.device, name: str,
+                   chunk_params: Optional[List[Any]] = None) -> None:
+        import torch.distributed as dist
+
+        from ..parallel.sharding import FsdpPlane, MeshOwner
+
+        owner = MeshOwner.fsdp_mesh(dist.get_world_size(),
+                                    device_type=device.type, name=name)
+        self._plane = FsdpPlane(owner, tx)
+        self._fsdp_state: Dict[str, Any] = {}
+        self._fsdp_opt: Dict[str, Any] = {}
+        for v in range(virtual):
+            key = str(v)
+            self._fsdp_state[key] = self._plane.shard(
+                None if chunk_params is None else chunk_params[v], src=0)
+            if tx is not None:
+                self._fsdp_opt[key] = self._plane.init_opt(
+                    self._fsdp_state[key])
+
+    def fsdp_gather(self, v: int):
+        """Chunk ``v``'s full params on rank 0 (None elsewhere)."""
+        return self._plane.gather(self._fsdp_state[str(v)], dst=0)
+
+    def fsdp_update(self, v: int, grads=None) -> bool:
+        """Chunk ``v``'s sharded step: rank 0 scatters the chunks of its
+        full ``grads``, each rank steps its shard."""
+        key = str(v)
+        self._fsdp_state[key], self._fsdp_opt[key] = self._plane.update(
+            self._fsdp_state[key], grads, self._fsdp_opt[key], src=0)
+        return True
+
+    def fsdp_accounting(self) -> Tuple[Dict[int, int], int]:
+        """({rank: resident param + moment bytes}, optimizer bytes over the
+        gang), summed over the hosted chunks."""
+        per_rank: Dict[int, int] = {}
+        opt_bytes = 0
+        for key in sorted(self._fsdp_state, key=int):
+            fp, opt = self._fsdp_state[key], self._fsdp_opt.get(key)
+            for rank, b in self._plane.per_device_bytes(fp, opt).items():
+                per_rank[rank] = per_rank.get(rank, 0) + b
+            if opt is not None:
+                opt_bytes += self._plane.opt_state_bytes(opt)
+        return per_rank, opt_bytes
+
+    def fsdp_to_host(self, v: int):
+        """Chunk ``v``'s checkpoint payload (full params, merged optimizer
+        state) on rank 0."""
+        key = str(v)
+        return self._plane.to_host(self._fsdp_state[key],
+                                   self._fsdp_opt.get(key), dst=0)
+
+    def fsdp_load(self, v: int, has_params: bool, has_opt: bool,
+                  params=None, opt=None) -> bool:
+        """Restore chunk ``v`` from rank 0's payload: new params are copied
+        into the shard in place (its optimizer stays bound to it), an
+        optimizer state replaces the moments."""
+        key = str(v)
+        fp = self._fsdp_state[key]
+        if has_params:
+            with torch.no_grad():
+                fp.flat.copy_(self._plane.shard(params, src=0).flat)
+        if has_opt:
+            self._fsdp_opt[key] = self._plane.place_opt(fp, opt, src=0)
+        return True
+
+    def fsdp_rank_info(self) -> dict:
+        """This rank's pid and device, its CUDA bytes held and peak, the
+        bytes of its shards and moments and the devices they lie on, and
+        its kernel launches since the process started."""
+        dev = self._plane.device
+        cuda = dev.type == "cuda"
+        tensors = [fp.flat for fp in self._fsdp_state.values()] + [
+            t for opt in self._fsdp_opt.values()
+            for st in opt.state.values() for t in st.values()
+            if isinstance(t, torch.Tensor) and t.ndim >= 1]
+        return {"pid": os.getpid(), "device": str(dev),
+                "memory_allocated": int(
+                    torch.cuda.memory_allocated() if cuda else 0),
+                "max_memory_allocated": int(
+                    torch.cuda.max_memory_allocated() if cuda else 0),
+                "shard_bytes": sum(fp.flat.numel() * fp.flat.element_size()
+                                   for fp in self._fsdp_state.values()),
+                "opt_bytes": sum(optimizer_state_bytes(o)
+                                 for o in self._fsdp_opt.values()),
+                "tensor_devices": sorted({str(t.device) for t in tensors}),
+                "kernel_launches": _kernel_launches()}
+
+
+class _FsdpPeer(_FsdpRank):
+    """A rank of an fsdp stage's gang other than the stage actor: it holds
+    its shards of the stage's chunk params and their moments, and runs
+    the gang operations the stage asks for."""
+
+    def fsdp_setup(self, virtual: int, tx_blob: Optional[bytes],
+                   device: Optional[str], name: str) -> bool:
+        self.device = resolve_device(device)
+        tx = cloudpickle.loads(tx_blob) if tx_blob else None
+        self._fsdp_init(virtual, tx, self.device, name)
+        return True
+
+
+class _CGStage(_FsdpRank):
     """One pipeline stage actor: hosts ``virtual`` model chunks with
     resident fwd/bwd programs, accumulates grads per chunk, and applies
     the (optionally ZeRO-sharded) optimizer update. Its methods are never
     called per-microbatch over the task plane — the cgraph executor's
-    iterative loop drives them from the compiled schedule."""
+    iterative loop drives them from the compiled schedule. With
+    ``fsdp > 1`` it is rank 0 of its gang (module docstring)."""
 
     def setup(self, actor_idx: int, num_actors: int, virtual: int,
               fn_blobs: List[bytes], chunk_params: List[Any],
@@ -405,13 +536,15 @@ class _CGStage:
               remat: bool, dp: int, dp_rank: int,
               group_name: str, zero_update: bool,
               grad_codec: Optional[str] = None,
-              device: Optional[str] = None) -> bool:
+              device: Optional[str] = None, fsdp: int = 1,
+              peers: Sequence[Any] = ()) -> bool:
         self.idx = actor_idx
         self.num_actors = num_actors
         self.virtual = virtual
         self.meta = chunk_meta
         self.dp = dp
         self.dp_rank = dp_rank
+        self.fsdp = int(fsdp)
         self.zero_update = zero_update
         self.group_name = group_name
         # dp-sync wire codec: block-scaled quantized collectives on every
@@ -428,8 +561,24 @@ class _CGStage:
         self.tx = cloudpickle.loads(tx_blob) if tx_blob else None
         self._zero = None
         self._opt = None
-        self.params = {str(v): _to(chunk_params[v], self.device)
-                       for v in range(virtual)}
+        self._plane = None
+        self._peers = list(peers)
+        self._param_cache: Dict[str, Any] = {}
+        self._gather_s = 0.0
+        if self.fsdp > 1:
+            # the sharded storage: this rank's 1/fsdp of each chunk's
+            # params and moments, the rest on the peers; the forward
+            # gathers, the update is shard-local
+            refs = [p.fsdp_setup.remote(virtual, tx_blob, device,
+                                        self._gang_name())
+                    for p in self._peers]
+            self._fsdp_init(virtual, self.tx, self.device, self._gang_name(),
+                            chunk_params)
+            ray_tpu_torch.get(refs, timeout=_GANG_TIMEOUT_S)
+            self.params = {}
+        else:
+            self.params = {str(v): _to(chunk_params[v], self.device)
+                           for v in range(virtual)}
         self._leaves = tree_flatten(self.params)[0]
         if self.tx is not None:
             if dp > 1:
@@ -439,7 +588,12 @@ class _CGStage:
                 # _destroy_collective_groups at shutdown/recover
                 collective.create_collective_group(
                     dp, dp_rank, group_name=group_name)
-            if dp > 1 and zero_update:
+            if self._plane is not None:
+                # fsdp composes with dp through the host collective's
+                # gradient sync (update() allreduces the mean before the
+                # sharded step); the moments were made with the shards
+                pass
+            elif dp > 1 and zero_update:
                 from ..parallel.zero import ZeroUpdater
 
                 self._zero = ZeroUpdater(
@@ -449,6 +603,35 @@ class _CGStage:
                 self._opt = self.tx(self._leaves)
         return True
 
+    def _gang_name(self) -> str:
+        return f"stage{self.idx}-r{self.dp_rank}"
+
+    def _on_gang(self, method: str, *args, **rank0_kwargs):
+        """Run the collective ``method(*args)`` on every rank of this
+        stage's fsdp gang: the peers' actor calls go out first, then this
+        rank's call, given ``rank0_kwargs`` as well (the data only rank 0
+        holds); each peer is waited for at most _GANG_TIMEOUT_S. Returns
+        this rank's result."""
+        refs = [getattr(p, method).remote(*args) for p in self._peers]
+        out = getattr(self, method)(*args, **rank0_kwargs)
+        ray_tpu_torch.get(refs, timeout=_GANG_TIMEOUT_S)
+        return out
+
+    def _params_of(self, v: int):
+        """Chunk ``v``'s full parameter tree. fsdp: gathered from the
+        shards when the step first needs it, cached for the step (update()
+        drops the cache, so only shards persist between steps)."""
+        key = str(v)
+        if self._plane is None:
+            return self.params[key]
+        cached = self._param_cache.get(key)
+        if cached is None:
+            t0 = time.perf_counter()
+            cached = self._param_cache[key] = self._on_gang("fsdp_gather", v)
+            # the gather's wall time, drained into the step report
+            self._gather_s += time.perf_counter() - t0
+        return cached
+
     # -- schedule ops (driven by the cgraph iterative loop) ---------------
 
     def forward(self, v: int, mb: int, x, targets=None):
@@ -457,7 +640,7 @@ class _CGStage:
         scalar loss as a float (which the schedule routes to the driver's
         loss channel)."""
         fwd, _ = self._progs[v]
-        p = self.params[str(v)]
+        p = self._params_of(v)
         x = _to(x, self.device)
         if self.meta[v]["last"]:
             targets = _to(targets, self.device)
@@ -489,7 +672,7 @@ class _CGStage:
         else:
             g = _to(g, self.device)
         if self._remat:
-            gp, gx = bwd(self.params[str(v)], *res, g)
+            gp, gx = bwd(self._params_of(v), *res, g)
         else:
             gp, gx = bwd(res, g)
         key = str(v)
@@ -513,14 +696,37 @@ class _CGStage:
     def update(self, scale: float) -> dict:
         """End-of-step optimizer update over every hosted chunk. With a
         dp group: ZeRO reduce-scatter/shard-update/all-gather (or the
-        replicated allreduce update when zero_update=False). Returns the
+        replicated allreduce update when zero_update=False). With fsdp:
+        the dp sync first, then the sharded step on the gang. Returns the
         stage report shipped to the driver."""
         t0 = time.perf_counter()
         grads = {k: tree_map(lambda t: t * scale, v)
                  for k, v in self._grad_acc.items()}
-        sync = {"rs_ms": 0.0, "ag_ms": 0.0, "allreduce_ms": 0.0}
+        sync = {"rs_ms": 0.0, "ag_ms": 0.0, "allreduce_ms": 0.0,
+                "gather_ms": round(self._gather_s * 1e3, 3)}
+        self._gather_s = 0.0
         if self.tx is None:
-            pass  # evaluation engine: grads dropped
+            self._param_cache = {}  # evaluation engine: grads dropped
+        elif self._plane is not None:
+            # fsdp: dp-sync the full grads first (host allreduce mean, the
+            # replicated path's arithmetic), then each chunk's sharded
+            # step; the gathered params drop, so only 1/fsdp persists
+            if self.dp > 1:
+                from ..parallel import collective
+                from ..parallel.zero import flatten_tree, unflatten_tree
+
+                flat_g, spec = flatten_tree(grads)
+                t_ar = time.perf_counter()
+                mean = collective.allreduce(
+                    flat_g.cpu(), self.group_name,
+                    codec=self.grad_codec) / self.dp
+                sync["allreduce_ms"] = round(
+                    (time.perf_counter() - t_ar) * 1e3, 3)
+                grads = unflatten_tree(
+                    mean.to(device=self.device, dtype=spec.dtype), spec)
+            for v in range(self.virtual):
+                self._on_gang("fsdp_update", v, grads=grads[str(v)])
+            self._param_cache = {}
         elif self._zero is not None:
             self.params = self._zero.update(self.params, grads)
             self._leaves = tree_flatten(self.params)[0]
@@ -548,16 +754,27 @@ class _CGStage:
             # the step's device work ends inside this op, so update_ms
             # and the next step's spans hold no leftover of this one
             torch.cuda.synchronize(self.device)
+        update_ms = round((time.perf_counter() - t0) * 1e3, 3)
+        if self._plane is not None:
+            per_rank, opt_bytes = self._on_gang("fsdp_accounting")
+        else:
+            opt_bytes = self.opt_state_bytes()
         report = {
             "stage": self.idx, "dp_rank": self.dp_rank,
-            "update_ms": round((time.perf_counter() - t0) * 1e3, 3),
-            "opt_state_bytes": self.opt_state_bytes(),
+            "update_ms": update_ms,
+            "opt_state_bytes": opt_bytes,
             "in_flight_residuals": len(self._residuals),
             # collective sync-exposed ms: ZeRO reduce-scatter/all-gather
-            # legs, dp allreduce
+            # legs, dp allreduce, fsdp gather
             "sync_ms": round(sum(sync.values()), 3),
             "sync_breakdown": sync,
         }
+        if self._plane is not None:
+            # each rank's resident params + moments between steps: the
+            # ~1/fsdp acceptance number
+            report["fsdp"] = self.fsdp
+            report["fsdp_bytes_per_chip"] = {
+                str(r): b for r, b in sorted(per_rank.items())}
         # per-op wall spans + cumulative exec/bubble recorded by the
         # cgraph executor in THIS process (perf/oplog.py); update() is
         # the last op of the step schedule on the same thread, so the
@@ -570,6 +787,11 @@ class _CGStage:
     # -- dynamic-path surface (driver calls between steps) ----------------
 
     def get_params(self) -> List[Any]:
+        if self._plane is not None:
+            # a transient gather, NOT through the step cache: a between-
+            # steps inspection must not leave full params resident
+            return [_host(self._on_gang("fsdp_gather", v))
+                    for v in range(self.virtual)]
         return [_host(self.params[str(v)]) for v in range(self.virtual)]
 
     def get_state(self) -> dict:
@@ -578,7 +800,18 @@ class _CGStage:
         replicated, the 1/dp SHARD when ZeRO-sharded (each dp rank
         persists its own shard; restore hands each rank its shard back).
         CPU copies, pulled by the driver BETWEEN steps, when no residuals
-        are in flight."""
+        are in flight. fsdp: the full params and each chunk's optimizer
+        state over its whole padded flat vector, kind "fsdp" (restore
+        re-shards both onto the same fsdp width, which the engine's
+        geometry check enforces)."""
+        if self._plane is not None:
+            params, opt = [], {}
+            for v in range(self.virtual):
+                p, o = self._on_gang("fsdp_to_host", v)
+                params.append(p)
+                if o is not None:
+                    opt[str(v)] = o
+            return {"params": params, "opt": opt or None, "kind": "fsdp"}
         if self._zero is not None:
             opt, kind = self._zero.opt_state(), "zero"
         elif self._opt is not None:
@@ -599,7 +832,11 @@ class _CGStage:
         setup() initialized, and any in-flight residual/grad accumulation
         is discarded (restore happens at a step boundary by
         construction)."""
-        if chunk_params is not None:
+        if chunk_params is not None and self._plane is not None:
+            for v in range(self.virtual):
+                self._on_gang("fsdp_load", v, True, False,
+                              params=chunk_params[v])
+        elif chunk_params is not None:
             new = [tree_flatten(_to(chunk_params[v], self.device))[0]
                    for v in range(self.virtual)]
             with torch.no_grad():
@@ -608,11 +845,18 @@ class _CGStage:
                     leaf.copy_(src)
         self._residuals = {}
         self._grad_acc = {}
+        self._param_cache = {}
         if kind == "fsdp":
-            raise ValueError(
-                "checkpoint holds fsdp-sharded state; fsdp is not ported "
-                "to ray_tpu_torch yet (ROADMAP A4.2)")
-        if kind == "zero":
+            if self._plane is None:
+                raise ValueError(
+                    "checkpoint holds fsdp-sharded state but this stage "
+                    "runs unsharded (fsdp flag changed between save and "
+                    "restore)")
+            if opt_state is not None:
+                for v in range(self.virtual):
+                    self._on_gang("fsdp_load", v, False, True,
+                                  opt=opt_state[str(v)])
+        elif kind == "zero":
             if self._zero is None:
                 raise ValueError(
                     "checkpoint holds a ZeRO opt-state shard but this "
@@ -628,6 +872,8 @@ class _CGStage:
         return True
 
     def opt_state_bytes(self) -> int:
+        if self._plane is not None:
+            return self._on_gang("fsdp_accounting")[1]
         if self._zero is not None:
             return self._zero.opt_state_bytes()
         return optimizer_state_bytes(self._opt) \
@@ -636,17 +882,26 @@ class _CGStage:
     def placement(self) -> dict:
         """This stage's worker pid, device, device bytes held and peak,
         parameter bytes, and since the process started: hand-written
-        kernel launches and the bytes it wrote to each channel edge."""
+        kernel launches and the bytes it wrote to each channel edge. fsdp:
+        the bytes of this rank's shards, and ``fsdp_ranks``, each gang
+        rank's ``fsdp_rank_info()`` in rank order."""
         cuda = self.device.type == "cuda"
-        return {"pid": os.getpid(), "device": str(self.device),
-                "memory_allocated": int(
-                    torch.cuda.memory_allocated(self.device) if cuda else 0),
-                "max_memory_allocated": int(
-                    torch.cuda.max_memory_allocated(self.device)
-                    if cuda else 0),
-                "param_bytes": tree_bytes(self.params),
-                "kernel_launches": _kernel_launches(),
-                "channel_bytes": channel_bytes_by_edge()}
+        out = {"pid": os.getpid(), "device": str(self.device),
+               "memory_allocated": int(
+                   torch.cuda.memory_allocated(self.device) if cuda else 0),
+               "max_memory_allocated": int(
+                   torch.cuda.max_memory_allocated(self.device)
+                   if cuda else 0),
+               "param_bytes": tree_bytes(self.params),
+               "kernel_launches": _kernel_launches(),
+               "channel_bytes": channel_bytes_by_edge()}
+        if self._plane is not None:
+            out["param_bytes"] = tree_bytes(
+                [fp.flat for fp in self._fsdp_state.values()])
+            out["fsdp_ranks"] = [self.fsdp_rank_info()] + ray_tpu_torch.get(
+                [p.fsdp_rank_info.remote() for p in self._peers],
+                timeout=_GANG_TIMEOUT_S)
+        return out
 
     def cleanup(self) -> bool:
         """Tear down this stage's dp collective group (rank 0 kills the
@@ -696,9 +951,17 @@ class CompiledPipelineEngine:
     virtual_stages: model chunks per actor (interleaved 1F1B when > 1).
     dp: data-parallel pipeline replicas; each stage's dp group syncs
         grads at update time.
-    fsdp: must be 1 (the sharded plane waits for ROADMAP A4.2).
+    fsdp: sharded param/opt-state axis of each stage
+        (parallel.sharding.FsdpPlane over a gang of the stage actor and
+        ``fsdp - 1`` peer actors in a gloo group; module docstring): chunk
+        params and optimizer moments live 1/fsdp per rank, the forward
+        gathers them exactly, the update is shard-local — the loss
+        trajectory is bit-identical to fsdp=1's. Composes with dp (host
+        gradient sync) and the pipeline stages into pp x dp x fsdp, in
+        P * dp * fsdp processes (and placement bundles).
     zero_update: ZeRO-shard the dp update (1/dp optimizer state per
-        replica) vs the replicated allreduce update.
+        replica) vs the replicated allreduce update (fsdp=1; with fsdp > 1
+        the sharded update runs on the fsdp plane instead).
     grad_codec: block-scaled wire codec ("int8"/"e4m3") for the dp
         gradient sync — the ZeRO reduce-scatter/all-gather (fp32 master
         shards) or the replicated allreduce ship quantized payloads, ~1/4
@@ -759,8 +1022,6 @@ class CompiledPipelineEngine:
         self.fsdp = int(fsdp)
         if self.fsdp < 1:
             raise ValueError(f"fsdp must be >= 1, got {fsdp}")
-        if self.fsdp > 1:
-            raise _not_ported(f"CompiledPipelineEngine(fsdp={fsdp})", "A4.2")
         self.num_chunks = G
         self.num_stages = G // V
         self.virtual = V
@@ -810,6 +1071,8 @@ class CompiledPipelineEngine:
         self._alloc: List[Tuple[Any, Any]] = []
         self._unsub = None
         self._actor_plans: Dict[bytes, _StagePlan] = {}
+        self.fsdp_peers: List[List[List[Any]]] = []   # [r][i] -> peers
+        self._peer_keys: set = set()
         self._in_writers: List[Any] = []      # per dp replica
         self._tgt_writers: List[Any] = []
         self._loss_readers: List[Any] = []
@@ -846,41 +1109,53 @@ class CompiledPipelineEngine:
     def _spawn_actors(self, chunk_params: Sequence[Any],
                       per_actor_state: Optional[List[List[dict]]] = None
                       ) -> None:
-        """Spawn dp x P stage actors and run setup. ``chunk_params`` are
-        G parameter trees in global chunk order; ``per_actor_state``
-        (recover/restore path) additionally carries each actor's
-        get_state() payload — params land via setup, optimizer state via
-        load_state afterwards. Reuses an existing placement group (the
-        recover path respawns into the same bundles). Each stage's
-        params go into the object store once and reach every dp replica
-        of that stage by reference."""
-        P, V, dp = self.num_stages, self.virtual, self.dp
+        """Spawn dp x P stage actors (and each one's fsdp - 1 peers) and
+        run setup. ``chunk_params`` are G parameter trees in global chunk
+        order; ``per_actor_state`` (recover/restore path) additionally
+        carries each actor's get_state() payload — params land via setup,
+        optimizer state via load_state afterwards. Reuses an existing
+        placement group (the recover path respawns into the same
+        bundles). Each stage's params go into the object store once and
+        reach every dp replica of that stage by reference. With fsdp > 1
+        each stage actor and its peers form their gang (a gloo world of
+        their own) before setup."""
+        from ..parallel.mesh_group import MeshGroup
+
+        P, V, dp, F = self.num_stages, self.virtual, self.dp, self.fsdp
         res = dict(self._res or {"CPU": 1.0})
         strategies = self._strategies
         actor_cls = ray_tpu_torch.remote(_CGStage)
+        peer_cls = ray_tpu_torch.remote(_FsdpPeer)
         if strategies is None and self._pg is None:
             self._pg = placement_group(
-                [dict(res) for _ in range(P * dp)], strategy="SPREAD")
+                [dict(res) for _ in range(P * dp * F)], strategy="SPREAD")
             if not self._pg.ready(timeout=60):
                 raise TimeoutError(
                     "pipeline placement group not ready")
+
+        def options(flat: int, k: int) -> dict:
+            # rank k of stage actor ``flat``'s gang (k = 0: the stage)
+            if strategies is not None:
+                return dict(num_cpus=res.get("CPU", 1.0),
+                            scheduling_strategy=strategies[flat])
+            return dict(num_cpus=res.get("CPU", 1.0),
+                        placement_group=self._pg,
+                        placement_group_bundle_index=flat * F + k)
+
         self.actors: List[Any] = []
         self.actor_grid: List[List[Any]] = []
+        self.fsdp_peers = [[[peer_cls.options(**options(r * P + i, k))
+                             .remote() for k in range(1, F)]
+                            for i in range(P)] for r in range(dp)]
+        self._peer_keys = {p._actor_id.binary() for row in self.fsdp_peers
+                           for peers in row for p in peers}
         shared = {}
         setups = []
         for r in range(dp):
             row = []
             for i in range(P):
                 flat = r * P + i
-                if strategies is not None:
-                    a = actor_cls.options(
-                        num_cpus=res.get("CPU", 1.0),
-                        scheduling_strategy=strategies[flat]).remote()
-                else:
-                    a = actor_cls.options(
-                        num_cpus=res.get("CPU", 1.0),
-                        placement_group=self._pg,
-                        placement_group_bundle_index=flat).remote()
+                a = actor_cls.options(**options(flat, 0)).remote()
                 row.append(a)
                 self.actors.append(a)
                 chunks = [i + v * P for v in range(V)]
@@ -894,14 +1169,25 @@ class CompiledPipelineEngine:
                         shared[i] = ray_tpu_torch.put(
                             [chunk_params[g] for g in chunks])
                     cp = shared[i]
-                setups.append(a.setup.remote(
+                setups.append((a, (
                     i, P, V,
                     [self._fn_blobs[g] for g in chunks],
                     cp, meta, self._tx_blob,
                     self._remat, dp, r, f"zpipe-{self._gtag}-s{i}",
-                    self.zero_update, self.grad_codec, self.device))
+                    self.zero_update, self.grad_codec, self.device, F,
+                    self.fsdp_peers[r][i])))
             self.actor_grid.append(row)
-        ray_tpu_torch.get(setups, timeout=self._setup_timeout)
+        if F > 1:
+            # every process is starting; each gang forms as its ranks
+            # come up (MeshGroup waits for them)
+            device_type = torch.device(self.device or "cuda").type
+            for r in range(dp):
+                for i in range(P):
+                    MeshGroup(F, workers=[self.actor_grid[r][i]]
+                              + self.fsdp_peers[r][i],
+                              device_type=device_type)
+        ray_tpu_torch.get([a.setup.remote(*args) for a, args in setups],
+                          timeout=self._setup_timeout)
         if per_actor_state is not None:
             loads = []
             for r in range(dp):
@@ -1693,19 +1979,25 @@ class CompiledPipelineEngine:
             except Exception:
                 pass
 
+    def _all_actors(self) -> List[Any]:
+        """Every stage actor and fsdp peer of the engine."""
+        return list(getattr(self, "actors", [])) + [
+            p for row in self.fsdp_peers for peers in row for p in peers]
+
     def _kill_stages_and_wait(self, deadline: float, what: str) -> None:
-        """Kill every stage actor (dead ones no-op) and wait for the
-        records to reach DEAD so placement slots free up for a respawn."""
-        for a in getattr(self, "actors", []):
+        """Kill every stage actor and fsdp peer (dead ones no-op) and wait
+        for the records to reach DEAD so placement slots free up for a
+        respawn."""
+        for a in self._all_actors():
             try:
                 ray_tpu_torch.kill(a)
             except Exception:
                 pass
-        for a in getattr(self, "actors", []):
+        for a in self._all_actors():
             while self._rt.actor_state(a._actor_id) not in ("DEAD",):
                 if time.monotonic() > deadline:
                     raise TimeoutError(
-                        f"stage actor {a._actor_id.hex()[:8]} did not "
+                        f"actor {a._actor_id.hex()[:8]} did not "
                         f"reach DEAD during {what}")
                 time.sleep(0.05)
 
@@ -1743,9 +2035,10 @@ class CompiledPipelineEngine:
         if state != ActorState.DEAD:
             return
         key = actor_id.binary() if hasattr(actor_id, "binary") else None
-        if key in self._actor_plans and not self._torn:
+        if (key in self._actor_plans or key in self._peer_keys) \
+                and not self._torn:
             self._abort(CompiledGraphClosedError(
-                f"pipeline engine {self._gtag}: stage actor "
+                f"pipeline engine {self._gtag}: stage actor or fsdp peer "
                 f"{actor_id.hex()[:8]} died while the engine was live"))
 
     def _abort(self, err: Exception) -> None:
@@ -1850,7 +2143,7 @@ class CompiledPipelineEngine:
             # shutdown) the cleanup hop failed — kill the rendezvous
             # stores from the driver so nothing detached leaks
             self._destroy_collective_groups()
-        for a in getattr(self, "actors", []):
+        for a in self._all_actors():
             try:
                 ray_tpu_torch.kill(a)
             except Exception:

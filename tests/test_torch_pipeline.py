@@ -539,9 +539,10 @@ def test_activation_over_the_channel_raises(rt):
 
 
 def test_construction_validation_unported_paths_and_no_optimizer(rt):
-    """Bad shapes raise; fsdp > 1, the data feed and elastic capacity
-    raise NotImplementedError naming their ROADMAP item; an engine with
-    tx=None runs forward and backward and keeps its params."""
+    """Bad shapes raise; the data feed and elastic capacity raise
+    NotImplementedError naming their ROADMAP item; an engine with
+    tx=None runs forward and backward and keeps its params. (fsdp > 1 is
+    ported: tests/test_torch_fsdp.py.)"""
     fns, params = _mlp_chunks(2)
     mbs, tgts = _mlp_batches(2)
     with pytest.raises(ValueError, match="one param tree"):
@@ -550,9 +551,6 @@ def test_construction_validation_unported_paths_and_no_optimizer(rt):
     with pytest.raises(ValueError, match="virtual_stages"):
         CompiledPipelineEngine(fns, params, num_microbatches=2,
                                virtual_stages=3, device=CPU)
-    with pytest.raises(NotImplementedError, match="A4"):
-        CompiledPipelineEngine(fns, params, _sgd(1e-2), num_microbatches=2,
-                               fsdp=2, device=CPU)
     eng = CompiledPipelineEngine(fns, params, None, num_microbatches=2,
                                  channel_bytes=SMALL_CHANNEL, device=CPU)
     try:

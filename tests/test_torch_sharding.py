@@ -224,9 +224,22 @@ def test_blocks_pad_past_the_end_with_zeros(n, size):
 
 
 def test_fsdp_plane_is_not_ported_yet():
-    for cls in (FsdpPlane, FsdpParams):
-        with pytest.raises(NotImplementedError, match="A4.2"):
-            cls()
+    """Named before the plane was ported (ROADMAP A4.2): FsdpPlane and
+    FsdpParams are now the plane's classes, and a plane over a mesh whose
+    fsdp axis is under 2 raises a ValueError naming the axis. The plane
+    on ranks is in tests/test_torch_fsdp.py."""
+    from ray_tpu_torch.parallel.sharding import fsdp
+
+    assert (FsdpPlane, FsdpParams) == (fsdp.FsdpPlane, fsdp.FsdpParams)
+
+    class NoFsdpAxis:
+        layout = DEFAULT_LAYOUT
+
+        def axis_size(self, axis):
+            return 1
+
+    with pytest.raises(ValueError, match="'fsdp' axis of size >= 2, got 1"):
+        FsdpPlane(NoFsdpAxis())
 
 
 def test_gpt_fused_entry_exit_under_tp_raises():
