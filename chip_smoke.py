@@ -195,7 +195,30 @@ Phases, each of which exits non-zero on failure:
               step p50 beside phase 13's, each stage's gather and update
               ms, each rank's bytes and the phase's seconds.
 
-Eleven main paths are counted: serving (phases 3-4), training (phase
+16. pp spmd — last, in a runtime of its own: GPT-2 small (as phase 13:
+              the seed-0 init and batch, 4 microbatches of 2 sequences of
+              1024 tokens) trained by GPT.loss_pp, backward and each
+              rank's own AdamW step on the full params (1 warm-up and 3
+              timed steps) by a gang of two gloo rank processes on the
+              card at MeshSpec(pp=2): the in-program pipeline
+              (pipeline_spmd: 5 ticks of 6 layers a rank, the ring
+              ppermute between ticks, the psum of the outputs, the pvary
+              sums in the backward, all staged through the host), beside
+              the same steps at pp=1 in a one-rank gang. The step-0 loss
+              is ln(50304) + 768 * 0.02^2 / 2 and GPT.loss_chunked on the
+              same 8 sequences; the loss falls; the two ranks' losses,
+              step-0 gradients and final params are bitwise equal; each
+              loss and final param lies within its limit of pp=1's (bit
+              for bit predicted; whether it held is printed); two planted
+              controls (x_mb's cotangent not summed over pp; stage 1 fed
+              one tick late) must fail those checks; each rank launches
+              flash_fwd and flash_bwd 30 times a timed step. Prints the
+              step p50 beside pp=1's, the ms a step of each collective
+              kind, each rank's peak memory, one more step of each rank
+              and of pp=1 under torch.profiler (device ms by kernel
+              class, idle share) and the phase's seconds.
+
+Twelve main paths are counted: serving (phases 3-4), training (phase
 5's steps), fused training (phase 6's steps), MoE training (phase 8's
 steps), ViT and ResNet training (phases 9-10, which launch no
 hand-written kernel), GPT serving (phase 7's timed engine runs, which
@@ -204,12 +227,15 @@ run, none either: the driver's counts, zeroed just before it, and each
 stage's, which start at zero with its process), pipeline (phase 13's
 engine steps: the driver's counts, zeroed just before them, and each
 stage's), the fsdp pipeline (phase 15's engine steps, counted so, with
-its peers') and tp (phase 14's apply on the two ranks, counted on each
+its peers'), tp (phase 14's apply on the two ranks, counted on each
 rank from just before it to just after it; the control's launches do
-not count). Every launch count is zeroed just before each and read just
-after it; the kernel comparisons of phases 2 and 11, the gradient
-checks, phase 7's dense reference forward, phase 13's in-process
-reference and phase 15's control do not count.
+not count) and pp spmd (phase 16's timed steps, counted on each rank
+from just before them to just after them, and the driver's, zeroed
+just before the run). Every launch count is zeroed just before each and
+read just after it; the kernel comparisons of phases 2 and 11, the
+gradient checks, phase 7's dense reference forward, phase 13's
+in-process reference, phase 15's control and phase 16's pp=1 run and
+controls do not count.
 The last three lines are the card (as nvidia-smi prints it), the kernels
 JSON line and the result JSON line. Without a CUDA device, or without the
 ray_tpu_torch package beside this file, the script fails before printing
@@ -645,6 +671,32 @@ FSDP_BYTES_SLACK = 64
 FSDP_CONTROL = "rank 1's gradient chunk taken one element on"
 FSDP_CONTROL_STEPS = 2
 QUANT_SHAPE, QUANT_BLOCK = (4, 1 << 20), 256
+# The in-program pipeline (phase 16): GPT-2 small's seed-0 init and
+# batch (as phase 13: PP_SPMD_MICROBATCHES microbatches of PP_SPMD_MB
+# sequences of TRAIN_SEQ tokens), trained by GPT.loss_pp + backward +
+# each rank's own AdamW step on the full params (TRAIN_LR, TRAIN_WD) by
+# a gang of PP_SPMD gloo rank processes on the card at MeshSpec(pp=2),
+# beside the same steps at pp=1 in a one-rank gang. The ranks must be
+# bitwise equal to each other (losses, step-0 gradients, final params);
+# each step's loss within TOL_PP_LOSS and every final param within
+# TOL_PP_PARAM (absolute) of pp=1's, bit for bit predicted. The two
+# controls must fail them: with x_mb's cotangent not summed over pp, rank
+# 1's wte/wpe gradients hold no embedding part (its wpe moves by about lr
+# a step less than pp=1's: 1.2e-3 after 4 steps); stage 1 fed one tick
+# late moves the step-0 loss. Each rank launches flash_fwd and flash_bwd
+# (M + P - 1) * L / P = 30 times a step: the ticks that carry no
+# microbatch are computed, as in the reference.
+PP_SPMD, PP_SPMD_MICROBATCHES, PP_SPMD_MB = 2, 4, 2
+PP_SPMD_WARMUP, PP_SPMD_STEPS = 1, 3
+TOL_PP_LOSS = 1e-4
+TOL_PP_PARAM = 1e-5
+PP_SUM_CONTROL = "x_mb's cotangent not summed over pp"
+PP_LATE_CONTROL = "stage 1 fed one tick late"
+PP_COLLECTIVES = (("tick", "tick ppermutes"),
+                  ("tick.T", "their transposes"),
+                  ("output", "output psum"),
+                  ("x_mb.T", "embedding cotangent psum"),
+                  ("stage_params.T", "stage-gradient sum"))
 
 
 class SmokeFailure(Exception):
@@ -1813,6 +1865,12 @@ def profile_step(step, label):
     """One training step under torch.profiler: device time by kernel
     class and the device's idle share of the step."""
     wall_ms, kernels, _ = profiled(step)
+    return kernel_breakdown(wall_ms, kernels, label)
+
+
+def kernel_breakdown(wall_ms, kernels, label):
+    """Print and return a profiled step's device time by kernel class, its
+    top kernels and the device's idle share of the step."""
     by_class = {name: 0.0 for name, _ in KERNEL_CLASSES}
     by_class["other (elementwise, reductions, copies)"] = 0.0
     for key, ms in kernels.items():
@@ -4055,6 +4113,364 @@ def phase_tp(tp_ref, card):
     return out
 
 
+def _digests(tree):
+    """{name: sha256 of the tensor's bytes} of a dict of f32 tensors."""
+    import hashlib
+
+    return {n: hashlib.sha256(t.detach().cpu().contiguous().numpy()
+                              ).hexdigest() for n, t in tree.items()}
+
+
+def pp_rank_run(w, mode, keep_params):
+    """On a rank of phase 16's gangs: GPT-2 small from the seed-0 init and
+    phase 13's batch, PP_SPMD_WARMUP + PP_SPMD_STEPS steps of
+    GPT.loss_pp over the gang's pp axis, backward and AdamW on the full
+    params. ``mode`` is "sound", "reference" (the one-rank gang),
+    PP_SUM_CONTROL (every rank's pvary of x_mb without its backward sum),
+    or, with no steps, "loss_chunked" (GPT.loss_chunked on the batch) or
+    PP_LATE_CONTROL (the step-0 loss, rank 1 handed each tick's
+    activation a tick late). The flash
+    and fused launch counts, the collective record and the peak memory
+    are zeroed just before the timed steps and read just after. Returns
+    the losses, the step walls, the step-0 gradients' and final params'
+    digests, the step-0 wpe gradient, the final params on the host when
+    this rank's pp index is ``keep_params``, and (on the card, for the
+    sound and reference runs) one more step under torch.profiler."""
+    import torch
+
+    from ray_tpu_torch.models import GPT, GPTConfig
+    from ray_tpu_torch.ops import (flash_attention_bwd, flash_attention_fwd,
+                                   ln_matmul_fwd, matmul_residual_fwd)
+    from ray_tpu_torch.parallel.sharding import lower
+
+    t_start = time.perf_counter()
+    owner = w.mesh_owner
+    rank = owner.coordinate()["pp"]
+    dev = torch.device(owner.mesh.device_type)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    c = GPTConfig.small(use_flash=True)
+    model = GPT(c)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    batch = PP_SPMD_MICROBATCHES * PP_SPMD_MB
+    tokens = torch.randint(0, c.vocab_size, (batch, TRAIN_SEQ),
+                           generator=gen, device=dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    M = PP_SPMD_MICROBATCHES
+    out = dict(rank=rank, pid=os.getpid(), device=str(params["wte"].device))
+    sound_pvary, sound_ppermute = lower.pvary, lower.ppermute
+    if mode == "loss_chunked":
+        with torch.no_grad():
+            out["loss_chunked"] = float(model.loss_chunked(
+                params, tokens, targets, num_chunks=M))
+        return out
+    if mode == PP_LATE_CONTROL:
+        held = []
+
+        def late(x, axis_name, perm, *, name=None):
+            got = sound_ppermute(x, axis_name, perm, name=name)
+            if rank != 1:
+                return got
+            prev = held.pop() if held else torch.zeros_like(got)
+            held.append(got)
+            return prev
+
+        lower.ppermute = late
+        try:
+            with torch.no_grad():
+                out["losses"] = [float(model.loss_pp(
+                    params, tokens, targets, owner, num_microbatches=M))]
+        finally:
+            lower.ppermute = sound_ppermute
+        return out
+    if mode == PP_SUM_CONTROL:
+        def unsummed(x, axis_name, *, name=None):
+            return x if name == "x_mb" else sound_pvary(x, axis_name,
+                                                        name=name)
+
+        lower.pvary = unsummed
+    try:
+        for p in params.values():
+            p.requires_grad_()
+        opt = torch.optim.AdamW(list(params.values()), lr=TRAIN_LR,
+                                weight_decay=TRAIN_WD)
+        counted = (flash_attention_fwd, flash_attention_bwd, ln_matmul_fwd,
+                   matmul_residual_fwd)
+        losses, walls = [], []
+        t_steps = time.perf_counter()
+        for step in range(PP_SPMD_WARMUP + PP_SPMD_STEPS):
+            if step == PP_SPMD_WARMUP:       # the timed steps start here
+                sync()
+                for f in counted:
+                    f.launches = 0
+                lower.collective_stats(reset=True)
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+            sync()
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = model.loss_pp(params, tokens, targets, owner,
+                                 num_microbatches=M)
+            loss.backward()
+            if step == 0:
+                grads = {n: p.grad for n, p in params.items()}
+                out["grad_digests"] = _digests(grads)
+                out["wpe_grad"] = grads["wpe"].detach().cpu()
+            opt.step()
+            losses.append(float(loss.detach()))
+            sync()
+            walls.append(time.perf_counter() - t0)
+        t_read = time.perf_counter()
+        out["launches"] = {f.__name__: f.launches for f in counted}
+        out["collectives"] = lower.collective_stats()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda \
+            else None
+        out.update(losses=losses, walls=walls,
+                   param_digests=_digests(params))
+        if rank == keep_params:
+            out["params"] = {n: p.detach().cpu() for n, p in params.items()}
+        t_profile = time.perf_counter()
+        if cuda and mode in ("sound", "reference"):
+            # one more step, after every reading, under torch.profiler
+
+            def step():
+                opt.zero_grad(set_to_none=True)
+                model.loss_pp(params, tokens, targets, owner,
+                              num_microbatches=M).backward()
+                opt.step()
+
+            out["profiled"] = profiled(step)[:2]
+        out["seconds"] = {k: round(b - a, 1) for k, a, b in (
+            ("set-up", t_start, t_steps), ("steps", t_steps, t_read),
+            ("readings", t_read, t_profile),
+            ("profile", t_profile, time.perf_counter()))}
+    finally:
+        lower.pvary = sound_pvary
+    del params, opt, loss
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_pp_spmd(wrappers, card, device=None):
+    """Phase 16: GPT-2 small trained by GPT.loss_pp at pp=PP_SPMD on the
+    card, PP_SPMD gloo rank processes of one gang, held to a one-rank
+    gang's pp=1 run (module docstring). The driver's launch counts of
+    ``wrappers`` are zeroed just before the pp=2 run and read just after
+    (it launches nothing); each rank counts its own timed steps.
+    ``device`` (None: the card) is for a rehearsal on the CPU, where the
+    checks of the card fail by design."""
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.models import GPTConfig
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.parallel.mesh_group import MeshGroup
+
+    t_phase = time.perf_counter()
+    device_type = "cuda" if device is None else str(device)
+    c = GPTConfig.small(use_flash=True)
+    P_, M = PP_SPMD, PP_SPMD_MICROBATCHES
+    # the params and gradients come back through the object store
+    ray_tpu_torch.init(num_cpus=4, object_store_memory=8 << 30)
+    gangs = {}
+    try:
+        def form(name, n):
+            try:
+                gangs[name] = MeshGroup(n, spec=MeshSpec(pp=n),
+                                        device_type=device_type)
+            except Exception as e:           # raised in this thread below
+                gangs[name + " error"] = e
+
+        t0 = time.perf_counter()
+        starters = [threading.Thread(target=form, args=a, daemon=True)
+                    for a in (("pp1", 1), ("pp2", P_))]
+        for t in starters:
+            t.start()
+        for t in starters:
+            t.join(timeout=600)
+        check(not any(t.is_alive() for t in starters),
+              "the pp spmd gangs did not form in 600 s")
+        for name in ("pp1", "pp2"):
+            if name + " error" in gangs:
+                raise gangs[name + " error"]
+        up_s = time.perf_counter() - t0
+        run_s = {}
+
+        def timed_run(label, name, mode, keep):
+            t1 = time.perf_counter()
+            out = gangs[name].run(pp_rank_run, mode, keep)
+            run_s[label] = round(time.perf_counter() - t1, 1)
+            return out
+
+        # the first CUDA work of each process, side by side: GPT.loss_chunked
+        # on the one-rank gang, the late-tick control on the pp=2 gang
+        t1 = time.perf_counter()
+        first = [gangs["pp1"].run_async(pp_rank_run, "loss_chunked", None),
+                 gangs["pp2"].run_async(pp_rank_run, PP_LATE_CONTROL, None)]
+        (chunked,), late = (ray_tpu_torch.get(refs, timeout=600)
+                            for refs in first)
+        run_s["loss_chunked beside the late control"] = round(
+            time.perf_counter() - t1, 1)
+        ref = timed_run("pp=1", "pp1", "reference", 0)[0]
+        for f in wrappers:                   # the pp spmd path starts here
+            f.launches = 0
+        runs = timed_run("pp=2", "pp2", "sound", 0)
+        driver_launches = {f.__name__: f.launches for f in wrappers}
+        ctl = timed_run("sum control", "pp2", PP_SUM_CONTROL, 1)
+    finally:
+        for g in list(gangs.values()):
+            if isinstance(g, MeshGroup):
+                g.shutdown()
+        ray_tpu_torch.shutdown()
+
+    def worst_param_diff(got):
+        return max(float((got[n] - ref["params"][n]).abs().max())
+                   for n in ref["params"])
+
+    r0 = runs[0]
+    chunked_loss = chunked["loss_chunked"]
+    devices = [r["device"] for r in runs] + [ref["device"]]
+    print(f"[pp spmd] gangs up in {up_s:.1f} s: pp={P_} ranks pids "
+          f"{[r['pid'] for r in runs]}, pp=1 pid {ref['pid']} (driver "
+          f"{os.getpid()}), devices {devices}")
+    check(all(d.startswith("cuda") for d in devices),
+          f"a pp spmd rank is not on the card: {devices}")
+
+    # the ranks are replicas: bitwise equal to each other
+    ranks_equal = all(r["losses"] == r0["losses"]
+                      and r["grad_digests"] == r0["grad_digests"]
+                      and r["param_digests"] == r0["param_digests"]
+                      for r in runs[1:])
+    loss0 = math.log(c.padded_vocab) + c.d_model * 0.02 ** 2 / 2
+    loss_err = max(abs(a - b) for a, b in zip(r0["losses"], ref["losses"]))
+    param_err = worst_param_diff(r0["params"])
+    bitwise = (r0["losses"] == ref["losses"]
+               and r0["grad_digests"] == ref["grad_digests"]
+               and r0["param_digests"] == ref["param_digests"])
+    print(f"[pp spmd] losses at pp={P_} {r0['losses']}; pp=1 "
+          f"{ref['losses']}; GPT.loss_chunked on the same "
+          f"{PP_SPMD_MICROBATCHES * PP_SPMD_MB} sequences "
+          f"{chunked_loss}; step-0 target {loss0:.4f}; the {P_} "
+          f"ranks bitwise equal (losses, step-0 gradients, final params): "
+          f"{ranks_equal}; against pp=1: worst loss difference {loss_err} "
+          f"(limit {TOL_PP_LOSS}), worst final param difference "
+          f"{param_err} (limit {TOL_PP_PARAM}); bit for bit with pp=1 "
+          f"(predicted): {bitwise}")
+    check(all(math.isfinite(x) for x in r0["losses"]),
+          f"losses {r0['losses']}")
+    check(abs(r0["losses"][0] - loss0) <= TOL_LOSS0,
+          f"step-0 loss {r0['losses'][0]} is not {loss0:.4f} within "
+          f"{TOL_LOSS0}")
+    check(abs(r0["losses"][0] - chunked_loss) <= TOL_PIPE_FULL_LOSS,
+          f"step-0 loss {r0['losses'][0]} is not GPT.loss_chunked "
+          f"{chunked_loss} within {TOL_PIPE_FULL_LOSS}")
+    check(r0["losses"][-1] < r0["losses"][0],
+          f"loss did not fall: {r0['losses']}")
+    check(ranks_equal, "the pp ranks are not bitwise equal to each other")
+    check(loss_err <= TOL_PP_LOSS, f"a loss is off pp=1's by {loss_err}")
+    check(param_err <= TOL_PP_PARAM,
+          f"a final param is off pp=1's by {param_err}")
+
+    # the launches: the ranks' timed steps
+    ticks = M + P_ - 1
+    want = {"flash_fwd": ticks * c.n_layer // P_,
+            "flash_bwd": ticks * c.n_layer // P_}
+    per_step = [{n: r["launches"][f.__name__] / PP_SPMD_STEPS
+                 for n, f in zip(("flash_fwd", "flash_bwd"), wrappers)}
+                for r in runs]
+    ref_per_step = {n: ref["launches"][f.__name__] / PP_SPMD_STEPS
+                    for n, f in zip(("flash_fwd", "flash_bwd"), wrappers)}
+    print(f"[pp spmd] flash launches a step per rank {per_step} (want "
+          f"{want}: {ticks} ticks x {c.n_layer // P_} layers); pp=1 "
+          f"{ref_per_step}; driver {driver_launches}")
+    check(all(d == want for d in per_step),
+          f"launches per step and rank {per_step}, want {want}")
+    check(not any(driver_launches.values()),
+          f"the driver launched {driver_launches} on the pp spmd path")
+    check(not any(r["launches"][f.__name__] for r in runs
+                  for f in wrappers[2:]),
+          "a pp rank launched a fused kernel")
+
+    # the planted controls
+    late_err = abs(late[0]["losses"][0] - ref["losses"][0])
+    ctl_ranks_equal = all(r["grad_digests"] == ctl[0]["grad_digests"]
+                          and r["param_digests"] == ctl[0]["param_digests"]
+                          for r in ctl[1:])
+    parted = sorted(n for n in ctl[0]["grad_digests"]
+                    if ctl[1]["grad_digests"][n] != ctl[0]["grad_digests"][n])
+    ctl_param_err = worst_param_diff(ctl[1]["params"])
+    ctl_wpe_err = float((ctl[1]["wpe_grad"] - ref["wpe_grad"]).abs().max())
+    print(f"[pp spmd] control '{PP_LATE_CONTROL}': step-0 loss "
+          f"{late[0]['losses'][0]} (rank 1: {late[1]['losses'][0]}), off "
+          f"pp=1's by {late_err}; control '{PP_SUM_CONTROL}': ranks "
+          f"bitwise equal {ctl_ranks_equal}, rank 1's step-0 gradients "
+          f"part from rank 0's at {parted}, its wpe gradient off pp=1's by "
+          f"{ctl_wpe_err}, its worst final param off pp=1's by "
+          f"{ctl_param_err}")
+    check(late_err > TOL_PP_LOSS,
+          f"control '{PP_LATE_CONTROL}' passes the loss check")
+    check(not ctl_ranks_equal and ctl_param_err > TOL_PP_PARAM,
+          f"control '{PP_SUM_CONTROL}' passes the checks")
+
+    # readings
+    step_p50 = statistics.median(r0["walls"][PP_SPMD_WARMUP:])
+    ref_p50 = statistics.median(ref["walls"][PP_SPMD_WARMUP:])
+    coll = [{k: round(r["collectives"].get(k, {}).get("seconds", 0.0)
+                      * 1e3 / PP_SPMD_STEPS, 3) for k, _ in PP_COLLECTIVES}
+            for r in runs]
+    coll_bytes = {k: r0["collectives"].get(k, {}).get("bytes", 0)
+                  // PP_SPMD_STEPS for k, _ in PP_COLLECTIVES}
+    peaks = [r["peak_bytes"] for r in runs]
+
+    def gib(b):
+        return None if b is None else round(b / 2**30, 2)
+
+    phase_s = time.perf_counter() - t_phase
+    print(f"[pp spmd] {card}: step wall "
+          f"{[round(t * 1e3, 2) for t in r0['walls']]} ms (p50 of the "
+          f"{PP_SPMD_STEPS} timed {step_p50 * 1e3:.2f} ms) against pp=1's "
+          f"{[round(t * 1e3, 2) for t in ref['walls']]} ms (p50 "
+          f"{ref_p50 * 1e3:.2f} ms); collectives ms a step per rank ("
+          + ", ".join(f"{k}: {label}" for k, label in PP_COLLECTIVES)
+          + f") {coll}, bytes a step per rank {coll_bytes}; peak "
+          f"allocated per rank {[gib(p) for p in peaks]} GiB (pp=1: "
+          f"{gib(ref['peak_bytes'])} GiB); the phase took {phase_s:.1f} s "
+          f"(gangs {up_s:.1f}, runs "
+          f"{run_s} s; in the ranks of pp=2, pp=1 and the sum control "
+          f"{[r['seconds'] for r in (r0, ref, ctl[0])]} s)")
+    profiles = {label: kernel_breakdown(*r["profiled"], f"pp spmd {label}")
+                for label, r in (("pp=2 rank 0", r0), ("pp=2 rank 1", runs[1]),
+                                 ("pp=1", ref)) if "profiled" in r}
+    return dict(losses=r0["losses"], reference_losses=ref["losses"],
+                loss_chunked=chunked_loss, ranks_equal=ranks_equal,
+                bitwise_with_pp1=bitwise, loss_err=loss_err,
+                param_err=param_err, step_wall_s=r0["walls"],
+                step_p50_s=step_p50, reference_step_wall_s=ref["walls"],
+                reference_step_p50_s=ref_p50, collectives_ms=coll,
+                collective_bytes=coll_bytes, peak_bytes=peaks,
+                reference_peak_bytes=ref["peak_bytes"],
+                launches_per_step=per_step,
+                reference_launches_per_step=ref_per_step,
+                late_control_err=late_err, sum_control_parted=parted,
+                sum_control_param_err=ctl_param_err,
+                sum_control_wpe_err=ctl_wpe_err, up_s=up_s, run_s=run_s,
+                phase_s=phase_s, profiles=profiles,
+                launches={n: sum(r["launches"][f.__name__] for r in runs)
+                          for n, f in zip(("flash_fwd", "flash_bwd"),
+                                          wrappers)},
+                fused_launches={f.__name__: sum(r["launches"][f.__name__]
+                                                for r in runs)
+                                for f in wrappers[2:]})
+
+
 def main() -> int:
     import torch
 
@@ -4157,6 +4573,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         pipeline = phase_pipeline(wrappers, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        pp_spmd = phase_pp_spmd(wrappers, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4192,13 +4611,15 @@ def main() -> int:
                         disagg=disagg_launches(flash_attention_fwd),
                         pipeline=pipeline["launches"]["flash_fwd"],
                         pipeline_fsdp=fsdp_launches(flash_attention_fwd),
-                        tp=tp_serving["launches"])
+                        tp=tp_serving["launches"],
+                        pp_spmd=pp_spmd["launches"]["flash_fwd"])
     bwd_launches = dict(training=training["launches"]["flash_bwd"],
                         training_fused=training_fused["launches"]["flash_bwd"],
                         moe_training=moe_training["launches"]["flash_bwd"],
                         disagg=disagg_launches(flash_attention_bwd),
                         pipeline=pipeline["launches"]["flash_bwd"],
-                        pipeline_fsdp=fsdp_launches(flash_attention_bwd))
+                        pipeline_fsdp=fsdp_launches(flash_attention_bwd),
+                        pp_spmd=pp_spmd["launches"]["flash_bwd"])
 
     def pipeline_launches(wrapper):
         # the driver's count and every stage's on the pipeline path
@@ -4261,7 +4682,10 @@ def main() -> int:
                     else matmul_residual_fwd),
                 "pipeline_fsdp": fsdp_launches(
                     ln_matmul_fwd if name == "ln_matmul"
-                    else matmul_residual_fwd)},
+                    else matmul_residual_fwd),
+                "pp_spmd": pp_spmd["fused_launches"][
+                    (ln_matmul_fwd if name == "ln_matmul"
+                     else matmul_residual_fwd).__name__]},
             "max_abs_err": bf16_max_err(rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -4278,7 +4702,7 @@ def main() -> int:
                "training_fused": training_fused,
                "moe_training": moe_training, "vit": vit, "resnet": resnet,
                "head_dims": head_dims, "gpt_serving": gpt_serving,
-               "disagg": disagg, "pipeline": pipeline,
+               "disagg": disagg, "pipeline": pipeline, "pp_spmd": pp_spmd,
                "fused_backward_products": fused_bwd, "lm_head": lm_head}
     print(f"[summary] {json.dumps(summary)}")
     print(card)

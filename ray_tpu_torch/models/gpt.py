@@ -33,10 +33,14 @@ programs return them there, ``apply`` moves them to the device).
 would add the residual into every rank's partial sum and round it to
 bf16 before the f32 all-reduce.
 
-Not here until a slice reads them: the XLA compile knobs ``remat`` and
-``scan_layers``, ``flash_block_q/k`` (the CUDA kernels choose their own
-tiles), ``seq_axis`` (ring attention) and ``loss_pp`` (the in-program
-pipeline over a mesh, ROADMAP A4.3).
+``GPT.loss_pp`` runs the layer stack as the in-program pipeline
+(``parallel.pipeline.pipeline_spmd``) over a mesh's pp axis of gang
+ranks, the embedding and the head replicated on every rank.
+
+Not here until a slice reads them: the XLA compile knobs ``remat`` (also
+under ``loss_pp``, ROADMAP A4.7) and ``scan_layers``, ``flash_block_q/k``
+(the CUDA kernels choose their own tiles), ``seq_axis`` (ring attention)
+and ``loss_pp`` on a tensor-parallel model (ROADMAP A4.6).
 """
 from __future__ import annotations
 
@@ -70,6 +74,12 @@ def _bf16_mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cuda":
         return torch.mm(a, b.T, out_dtype=torch.float32)
     return a.float() @ b.float().T
+
+
+def _seeded(seed: int, device: torch.device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
 
 
 class _LMHead(torch.autograd.Function):
@@ -442,6 +452,65 @@ class GPT:
         time, in the forward and in the backward."""
         x = self._backbone(params, tokens, generator)
         return self._chunked_head_nll(params["wte"], x, targets, num_chunks)
+
+    def loss_pp(self, params: Params, tokens: torch.Tensor,
+                targets: torch.Tensor, mesh, num_microbatches: int = 0,
+                pp_axis: str = "pp",
+                generator: Optional[torch.Generator] = None,
+                num_chunks: int = 0) -> torch.Tensor:
+        """Pipeline-parallel loss: the layer stack runs as the collective
+        microbatch pipeline over the mesh's ``pp_axis``
+        (``parallel.pipeline.pipeline_spmd``), the embedding and the LM
+        head replicated on every rank of it. Every rank of the axis calls
+        it with the same arguments and gets the same loss; its backward
+        runs the reverse pipeline and leaves the whole gradient of every
+        parameter on every rank.
+
+        With dropout > 0 and a generator, one seed for the embedding and
+        one per layer are drawn from ``generator``; each layer draws its
+        masks from a generator seeded anew at each call, so every
+        microbatch reuses its layer's masks (as the reference's stacked
+        per-layer dropout keys do) and the masks do not depend on P."""
+        from ..parallel.pipeline import axis_size, pipeline_spmd, stack_stages
+
+        if self.tp is not None:
+            raise NotImplementedError(
+                "GPT.loss_pp on a tensor-parallel GPT is not ported "
+                "(ROADMAP A4.6)")
+        c = self.config
+        P_ = axis_size(mesh, pp_axis)
+        M = num_microbatches or max(P_, 2)
+        B, S = tokens.shape
+        if B % M:
+            raise ValueError(f"batch {B} not divisible into {M} microbatches")
+        x = self._embed(params["wte"], params["wpe"], tokens)
+        D = x.shape[-1]
+        layer_params = {n: params[n] for n in self.LAYER_PARAMS}
+        if c.dropout > 0.0 and generator is not None:
+            seeds = torch.randint(0, 2 ** 62, (c.n_layer + 1,),
+                                  generator=generator,
+                                  device=generator.device).cpu()
+            x = self._dropout(x, _seeded(int(seeds[0]), x.device))
+            # the per-layer seeds stage-split with the layer params
+            layer_params["_dropout_seed"] = seeds[1:]
+        stages = stack_stages(layer_params, P_)
+        x_mb = x.reshape(M, B // M, S, D)
+
+        def stage_fn(lp, xs):
+            seeds = lp.get("_dropout_seed")
+            layers = {n: lp[n].unbind(0) for n in self.LAYER_PARAMS}
+            for li in range(len(layers["w_qkv"])):
+                gen = None if seeds is None else \
+                    _seeded(int(seeds[li]), xs.device)
+                xs = self._block(xs, {n: t[li] for n, t in layers.items()},
+                                 gen)
+            return xs
+
+        y_mb = pipeline_spmd(stage_fn, stages, x_mb, mesh, pp_axis=pp_axis)
+        x = layernorm(y_mb.reshape(B, S, D), params["lnf_g"],
+                      params["lnf_b"])
+        return self._chunked_head_nll(params["wte"], x, targets,
+                                      num_chunks or M)
 
     def _chunked_head_nll(self, wte: torch.Tensor, x: torch.Tensor,
                           targets: torch.Tensor,

@@ -7,7 +7,9 @@ ray_tpu/parallel).
   (allreduce/allgather/reducescatter/broadcast/reduce/send/recv/barrier);
 - ``zero``: the ZeRO-sharded dp update over the collective
   (``ZeroUpdater``) and the flat-vector and opt-state reshard helpers;
-- ``pipeline``: the 1F1B and interleaved 1F1B schedules;
+- ``pipeline``: the 1F1B and interleaved 1F1B schedules, and the
+  in-program pipeline ``pipeline_spmd`` over a mesh's pp axis of gang
+  ranks, with ``stack_stages``;
 - ``mesh``: ``MeshSpec`` / ``build_mesh`` (a torch DeviceMesh over the
   ranks of the world process group) and the logical-axis rules;
 - ``mesh_group``: ``MeshGroup``, a gang of rank actors that forms a
@@ -16,9 +18,8 @@ ray_tpu/parallel).
   the fsdp plane (``FsdpPlane``); ``zero.make_zero_update_spmd`` is the
   ZeRO update over a mesh axis of gang ranks.
 
-The in-program pipeline waits for ROADMAP A4.3. The names below load on
-first use, so a worker that only decodes a channel's codec never imports
-torch.
+The names below load on first use, so a worker that only decodes a
+channel's codec never imports torch.
 """
 import importlib
 
@@ -32,6 +33,7 @@ _EXPORTS = {
     "barrier": "collective",
     "ZeroUpdater": "zero", "make_zero_update_spmd": "zero",
     "schedule_1f1b": "pipeline", "schedule_interleaved_1f1b": "pipeline",
+    "pipeline_spmd": "pipeline", "stack_stages": "pipeline",
     "MeshSpec": "mesh", "build_mesh": "mesh", "virtual_mesh": "mesh",
     "local_mesh": "mesh", "named_sharding": "mesh",
     "shard_constraint": "mesh", "logical_to_mesh": "mesh",

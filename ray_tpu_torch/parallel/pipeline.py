@@ -1,21 +1,25 @@
-"""Pipeline schedules (counterpart of the schedules in
-ray_tpu/parallel/pipeline.py, copied as they are: pure Python).
+"""Pipeline schedules and the in-program pipeline (counterpart of
+ray_tpu/parallel/pipeline.py, with its names).
 
 ``schedule_1f1b`` is the explicit per-stage 1F1B order (warmup forwards,
 then alternating one-forward-one-backward, then the remaining backwards);
 ``schedule_interleaved_1f1b`` the per-actor order when each actor hosts
-several model chunks. The actor-hosted engine
-(``ray_tpu_torch.train.pipeline_cgraph``) compiles the latter into each
-stage actor's op list.
+several model chunks. Both are copied as they are (pure Python). The
+actor-hosted engine (``ray_tpu_torch.train.pipeline_cgraph``) compiles
+the latter into each stage actor's op list.
 
-Not here: the in-program collective pipeline ``pipeline_spmd`` and
-``stack_stages``, which run over a device mesh (ROADMAP A4.3).
+``pipeline_spmd`` is the in-program collective pipeline: one program on
+every rank of a mesh's pp axis (a gang of ranks, ``MeshGroup``), GPipe's
+schedule over ticks, whose backward is the transposed program, as JAX's
+AD gives it. ``stack_stages`` splits stacked ``[L, ...]`` layer params
+into ``[P, L/P, ...]`` stages.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
-__all__ = ["schedule_1f1b", "schedule_interleaved_1f1b"]
+__all__ = ["schedule_1f1b", "schedule_interleaved_1f1b", "pipeline_spmd",
+           "stack_stages"]
 
 
 def schedule_1f1b(num_stages: int, num_microbatches: int
@@ -131,3 +135,114 @@ def schedule_interleaved_1f1b(num_stages: int, num_microbatches: int,
                 "interleaved 1F1B simulation stalled (bug): "
                 f"P={P_} M={M} V={V} done={len(done)}/{total}")
     return sched
+
+
+# ---------------------------------------------------------------------------
+# In-program collective pipeline (GPipe schedule; autograd runs the
+# transposed program, the reverse pipeline)
+# ---------------------------------------------------------------------------
+
+
+def _mesh_owner(mesh):
+    """A MeshOwner for ``mesh``: itself, or one adopting a DeviceMesh."""
+    from .sharding.owner import MeshOwner
+
+    if isinstance(mesh, MeshOwner):
+        return mesh
+    return MeshOwner.from_mesh(mesh, name="pipeline_spmd")
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The size of ``axis`` on ``mesh`` (a MeshOwner or a DeviceMesh)."""
+    sizes = _mesh_owner(mesh).axis_sizes
+    if axis not in sizes:
+        raise ValueError(f"mesh axes {list(sizes)} have no {axis!r} axis")
+    return sizes[axis]
+
+
+def pipeline_spmd(stage_fn: Callable[[Any, Any], Any],
+                  stage_params: Any,
+                  x_mb,
+                  mesh,
+                  pp_axis: str = "pp"):
+    """Run ``stage_fn`` over P pipeline stages for M microbatches, on
+    every rank of the mesh's ``pp_axis``.
+
+    stage_params: a tree whose leaves have leading axis P (one slice per
+        stage), the whole stack on every rank; each rank runs its own
+        slice.
+    x_mb: [M, ...] microbatched input of stage 0, the same on every rank.
+    mesh: a MeshOwner or a DeviceMesh over the ranks of a gang; its other
+        axes hold replicas, which run the same program.
+    Returns the [M, ...] outputs of the last stage on every rank of the
+    pp axis.
+
+    At P > 1 it is the reference's program: M + P - 1 ticks, in each of
+    which every stage runs ``stage_fn`` (on stage 0 microbatch t, on the
+    others what the previous stage sent at the tick before; the ticks
+    that carry no microbatch are computed and discarded, so every rank
+    runs the same graph), the ring ``ppermute`` between ticks, and a
+    ``psum`` of the last stage's outputs. Differentiable: the backward
+    runs the transposes (``parallel.sharding.lower``), so the gradient
+    of every leaf of ``stage_params`` and of ``x_mb`` is the whole one on
+    every rank: the stacked params and ``x_mb`` enter through ``pvary``,
+    whose backward sums every rank's cotangent over pp (each rank's
+    stage row, and stage 0's input cotangent, with exact zeros
+    elsewhere).
+    """
+    import torch
+
+    from .mesh import PartitionSpec as P
+    from .sharding.lower import (axis_index, lower_shard_map, ppermute,
+                                 psum, pvary)
+    from .sharding.owner import _tree_map
+
+    owner = _mesh_owner(mesh)
+    P_ = axis_size(owner, pp_axis)
+    M = x_mb.shape[0]
+    if P_ == 1:
+        sp = _tree_map(lambda a: a[0], stage_params)
+        return torch.stack([stage_fn(sp, x_mb[i]) for i in range(M)])
+
+    perm = [(i, (i + 1) % P_) for i in range(P_)]
+    ticks = M + P_ - 1
+
+    def body(stacked, x):
+        idx = axis_index(pp_axis)
+        stacked = pvary(stacked, pp_axis, name="stage_params")
+        x = pvary(x, pp_axis, name="x_mb")
+        sp = _tree_map(lambda a: a[idx], stacked)
+        first = torch.tensor(idx == 0, device=x.device)
+        last = torch.tensor(idx == P_ - 1, device=x.device)
+        state = torch.zeros_like(x[0])
+        ys = []
+        for t in range(ticks):
+            out = stage_fn(sp, torch.where(first, x[min(t, M - 1)], state))
+            if t >= P_ - 1:
+                # stage P-1 emitted microbatch t - (P-1) this tick
+                ys.append(out)
+            if t < ticks - 1:          # the last tick's send feeds nothing
+                state = ppermute(out, pp_axis, perm, name="tick")
+        # only the last stage holds real outputs; replicate over the ring
+        y = torch.stack(ys)
+        return psum(torch.where(last, y, torch.zeros_like(y)), pp_axis,
+                    name="output")
+
+    # the whole stack and x_mb enter replicated; pvary and the row taken
+    # in the body make them per-stage
+    run = lower_shard_map(body, owner, in_specs=(P(), P()),
+                          out_specs=P(), axis_names=frozenset({pp_axis}))
+    return run(stage_params, x_mb)
+
+
+def stack_stages(layer_params: Dict[str, Any], num_stages: int
+                 ) -> Dict[str, Any]:
+    """[L, ...] stacked per-layer params -> [P, L/P, ...] per-stage."""
+    out = {}
+    for k, v in layer_params.items():
+        L = v.shape[0]
+        if L % num_stages:
+            raise ValueError(
+                f"{k}: {L} layers not divisible into {num_stages} stages")
+        out[k] = v.reshape(num_stages, L // num_stages, *v.shape[1:])
+    return out

@@ -8,12 +8,23 @@
   collectives, and the outputs are redistributed to ``out_specs`` and
   returned as this rank's shards.
 - :func:`lower_shard_map` — the manual plane: the body runs on this
-  rank's shards and its collectives (:func:`psum`, :func:`all_gather`,
-  :func:`psum_scatter`, :func:`all_to_all`, :func:`axis_index`, and the
-  one-rank :func:`gather`, :func:`scatter` and object collectives that
-  JAX has no use for) name axes the owner's mesh binds; an axis the call
-  does not bind raises. The collectives run over gloo: a CUDA tensor
-  goes through the host and its result comes back to its device.
+  rank's shards and its collectives (:func:`psum`, :func:`ppermute`,
+  :func:`pvary`, :func:`all_gather`, :func:`psum_scatter`,
+  :func:`all_to_all`, :func:`axis_index`, and the one-rank
+  :func:`gather`, :func:`scatter` and object collectives that JAX has no
+  use for) name axes the owner's mesh binds; an axis the call does not
+  bind raises. The collectives run over gloo: a CUDA tensor goes through
+  the host and its result comes back to its device.
+- :func:`psum`, :func:`ppermute` and :func:`pvary` are differentiable,
+  with the transposes JAX gives them inside a shard_map: a sum into an
+  output replicated over the axis transposes to the identity, a
+  permutation to the inverse permutation, and a replicated input entering
+  the manual region (``pvary``) to the sum of every rank's cotangent. The
+  backward captures the axis's group at the forward, so it runs after
+  the body has returned, as ``loss.backward()`` runs it. Every rank must
+  run the same autograd graph, so that the ranks' backwards reach the
+  collectives in the same order; :func:`collective_stats` keeps their
+  seconds and bytes.
 - :func:`sharded_init` — each rank materializes its shards from a seeded
   full init, one tensor at a time, so no rank holds the whole tree.
 
@@ -36,7 +47,11 @@ Where the port's semantics differ from GSPMD's:
 from __future__ import annotations
 
 import contextvars
-from typing import Callable, Optional, Sequence, Union
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
 
 from ..mesh import PartitionSpec
 from .owner import MeshOwner, _tree_map
@@ -157,13 +172,202 @@ def _host(x):
     return x.detach().cpu() if x.device.type != "cpu" else x
 
 
-def psum(x, axis_name: str):
-    """Sum of ``x`` over the ranks of ``axis_name`` (jax.lax.psum)."""
+# {name: {"calls", "seconds", "bytes"}} of the differentiable collectives
+_STATS: Dict[str, Dict[str, float]] = {}
+_STATS_LOCK = threading.Lock()
+
+
+def collective_stats(reset: bool = False) -> Dict[str, Dict[str, float]]:
+    """Calls, wall seconds and bytes of :func:`psum`, :func:`ppermute`
+    and :func:`pvary` in this process since the last reset, by name: the
+    forward under its ``name`` (the op's name by default), its transpose
+    under ``name + ".T"``. A call's seconds start once the device has
+    finished the work queued before it (the copy to the host waits for
+    that anyway) and include the copies through the host. ``reset``
+    empties the record after reading it."""
+    with _STATS_LOCK:
+        out = {k: dict(v) for k, v in _STATS.items()}
+        if reset:
+            _STATS.clear()
+    return out
+
+
+def _timed(name: str, x, fn):
+    """``fn()``, its wall time and ``x``'s bytes recorded under ``name``."""
+    if x.device.type == "cuda":
+        torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    out = fn()
+    if x.device.type == "cuda":
+        torch.cuda.synchronize(x.device)
+    seconds = time.perf_counter() - t0
+    with _STATS_LOCK:
+        rec = _STATS.setdefault(name, {"calls": 0, "seconds": 0.0,
+                                       "bytes": 0})
+        rec["calls"] += 1
+        rec["seconds"] += seconds
+        rec["bytes"] += x.numel() * x.element_size()
+    return out
+
+
+def _grad_needed(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _all_reduce(x, group):
     import torch.distributed as dist
 
     out = _host(x).clone()
-    dist.all_reduce(out, group=_group(axis_name))
+    dist.all_reduce(out, group=group)
     return out.to(x.device)
+
+
+class _PSum(torch.autograd.Function):
+    """psum into an output replicated over the axis: its transpose is the
+    identity on each rank (JAX's)."""
+
+    @staticmethod
+    def forward(ctx, x, group, name):
+        return _timed(name, x, lambda: _all_reduce(x, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def psum(x, axis_name: str, *, name: Optional[str] = None):
+    """Sum of ``x`` over the ranks of ``axis_name`` (jax.lax.psum).
+    Differentiable: the result is replicated over the axis, so the
+    cotangent passes through unchanged."""
+    group = _group(axis_name)
+    name = name or "psum"
+    if _grad_needed(x):
+        return _PSum.apply(x, group, name)
+    return _timed(name, x, lambda: _all_reduce(x, group))
+
+
+def _perm_peers(perm: Sequence[Tuple[int, int]], me: int, n: int):
+    """(the index this rank sends to, the index it receives from) under
+    ``perm``, a list of (source, target) pairs over ``n`` ranks; None
+    where it has none."""
+    pairs = [(int(s), int(d)) for s, d in perm]
+    sources, targets = [s for s, _ in pairs], [d for _, d in pairs]
+    if len(set(sources)) != len(sources) or \
+            len(set(targets)) != len(targets) or \
+            not all(0 <= i < n for i in sources + targets):
+        raise ValueError(f"ppermute: {list(perm)} is not a permutation "
+                         f"of the {n} ranks of the axis")
+    to = next((d for s, d in pairs if s == me), None)
+    frm = next((s for s, d in pairs if d == me), None)
+    return to, frm
+
+
+def _exchange(x, to: Optional[int], frm: Optional[int], me: int, group):
+    """Send ``x`` to the rank of index ``to`` and receive a tensor like it
+    from the rank of index ``frm`` (zeros where ``frm`` is None), both in
+    flight together, over gloo through the host."""
+    import torch.distributed as dist
+
+    if to == me:                           # a rank that keeps its own
+        return x.clone()
+    h = _host(x).contiguous()
+    buf = torch.zeros_like(h) if frm is None else torch.empty_like(h)
+    works = []
+    if frm is not None:
+        works.append(dist.irecv(buf, src=dist.get_global_rank(group, frm),
+                                group=group))
+    if to is not None:
+        works.append(dist.isend(h, dst=dist.get_global_rank(group, to),
+                                group=group))
+    for w in works:
+        w.wait()
+    return buf.to(x.device)
+
+
+class _PPermute(torch.autograd.Function):
+    """ppermute; its transpose is the inverse permutation (JAX's)."""
+
+    @staticmethod
+    def forward(ctx, x, group, to, frm, me, name):
+        ctx.peers = (group, to, frm, me, name)
+        return _timed(name, x, lambda: _exchange(x, to, frm, me, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        group, to, frm, me, name = ctx.peers
+        return (_timed(name + ".T", g,
+                       lambda: _exchange(g, frm, to, me, group)),
+                None, None, None, None, None)
+
+
+def ppermute(x, axis_name: str, perm: Sequence[Tuple[int, int]], *,
+             name: Optional[str] = None):
+    """jax.lax.ppermute: each rank of ``axis_name`` sends ``x`` to the
+    index ``perm`` pairs it with as source, and returns what the rank
+    pairing it as target sent (zeros where no pair names it as target).
+    Differentiable: the cotangent travels the inverse permutation."""
+    import torch.distributed as dist
+
+    group = _group(axis_name)
+    me = axis_index(axis_name)
+    to, frm = _perm_peers(perm, me, dist.get_world_size(group))
+    name = name or "ppermute"
+    if _grad_needed(x):
+        return _PPermute.apply(x, group, to, frm, me, name)
+    return _timed(name, x, lambda: _exchange(x, to, frm, me, group))
+
+
+def _sum_over(xs: List, group, name: str) -> List:
+    """The sum over the group of each tensor of ``xs``: one all-reduce per
+    dtype and device, of the tensors flattened into one buffer."""
+    out: List = [None] * len(xs)
+    by_kind: Dict[tuple, List[int]] = {}
+    for i, x in enumerate(xs):
+        by_kind.setdefault((x.dtype, x.device), []).append(i)
+    for idx in by_kind.values():
+        flat = torch.cat([xs[i].reshape(-1) for i in idx])
+        summed = _timed(name, flat, lambda: _all_reduce(flat, group))
+        for i, part in zip(idx, summed.split([xs[i].numel()
+                                              for i in idx])):
+            out[i] = part.view(xs[i].shape)
+    return out
+
+
+class _PVary(torch.autograd.Function):
+    """A replicated input entering the manual region: the identity, whose
+    transpose sums every rank's cotangent over the axis."""
+
+    @staticmethod
+    def forward(ctx, group, name, *xs):
+        ctx.group, ctx.name = group, name
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *_sum_over(list(gs), ctx.group,
+                                       ctx.name + ".T"))
+
+
+def pvary(x, axis_name: str, *, name: Optional[str] = None):
+    """Mark ``x`` (a tensor, or a dict, list or tuple tree of them) as
+    varying over ``axis_name``: the values are unchanged, and in the
+    backward each differentiable leaf's cotangent is summed over the
+    ranks of the axis (JAX's ``pvary``, the transpose of a replicated
+    input entering the manual region). The summed leaves share one
+    all-reduce per dtype."""
+    group = _group(axis_name)
+
+    def summed(t):
+        return isinstance(t, torch.Tensor) and t.is_floating_point() \
+            and _grad_needed(t)
+
+    leaves = []
+    _tree_map(leaves.append, x)
+    picked = [t for t in leaves if summed(t)]
+    if not picked:
+        return x
+    marked = iter(_PVary.apply(group, name or "pvary", *picked))
+    return _tree_map(lambda t: next(marked) if summed(t) else t, x)
 
 
 def all_gather(x, axis_name: str, axis: int = 0, tiled: bool = False):
