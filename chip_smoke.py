@@ -195,7 +195,7 @@ Phases, each of which exits non-zero on failure:
               step p50 beside phase 13's, each stage's gather and update
               ms, each rank's bytes and the phase's seconds.
 
-16. pp spmd — last, in a runtime of its own: GPT-2 small (as phase 13:
+16. pp spmd — in a runtime of its own: GPT-2 small (as phase 13:
               the seed-0 init and batch, 4 microbatches of 2 sequences of
               1024 tokens) trained by GPT.loss_pp, backward and each
               rank's own AdamW step on the full params (1 warm-up and 3
@@ -217,8 +217,40 @@ Phases, each of which exits non-zero on failure:
               kind, each rank's peak memory, one more step of each rank
               and of pp=1 under torch.profiler (device ms by kernel
               class, idle share) and the phase's seconds.
+17. train   — last, in a runtime of its own: the train package on two
+              gang workers on the card (gloo ranks of one world, the
+              mesh's dp axis across them). Part A, GPT-2 small DDP by
+              JaxTrainer: each rank holds phase 5's seed-0 params and
+              takes 4 of phase 13's 8 sequences through
+              get_dataset_shard; 1 + 3 steps of loss_chunked, backward,
+              the gradient mean over dp (one flat f32 buffer through the
+              host and gloo) and GPT-2's AdamW, a train.report each, rank
+              0's last with a Checkpoint of its params. Held to one
+              process here that takes each rank's shard's gradient in
+              turn, averages them and steps the same AdamW: the step-0
+              loss is ln(50304) + 768 * 0.02^2 / 2, the loss falls, the
+              ranks are bitwise equal after every step, every mean loss,
+              the step-0 mean gradient and every final param lie within
+              their limits of the reference's (bit for bit predicted;
+              whether it held is printed), the checkpoint fit persisted
+              reads back bitwise rank 0's params (and wte in bf16), and
+              each rank launches flash_fwd and flash_bwd 12 times a
+              timed step; two planted controls (the all-reduce skipped;
+              the sum not halved) must fail those checks. Part B,
+              ResNet-18/CIFAR by TorchTrainer: phase 10's config and 128
+              synthetic images, 64 a rank, the functional ResNet in an
+              nn.Module through train.torch.prepare_model (DDP), 20 SGD
+              steps; the loss falls, the ranks' params are bitwise equal
+              after every step and within their limit of one process on
+              the mean of the two shards' gradients, the batch-norm
+              state moves, no hand-written kernel launches; the control
+              (prepare_model bypassed) must part the ranks. Prints each
+              part's step p50 beside its reference's, the gradient
+              mean's ms and bytes, gang start-up, each rank's peak
+              memory, the seconds of the fits and the ranks' reports,
+              and the phase's seconds.
 
-Twelve main paths are counted: serving (phases 3-4), training (phase
+Fourteen main paths are counted: serving (phases 3-4), training (phase
 5's steps), fused training (phase 6's steps), MoE training (phase 8's
 steps), ViT and ResNet training (phases 9-10, which launch no
 hand-written kernel), GPT serving (phase 7's timed engine runs, which
@@ -231,11 +263,14 @@ its peers'), tp (phase 14's apply on the two ranks, counted on each
 rank from just before it to just after it; the control's launches do
 not count) and pp spmd (phase 16's timed steps, counted on each rank
 from just before them to just after them, and the driver's, zeroed
-just before the run). Every launch count is zeroed just before each and
-read just after it; the kernel comparisons of phases 2 and 11, the
+just before the run), train ddp (phase 17 part A's sound run, counted on
+each rank from just before its timed steps to just after them, and the
+driver's, zeroed just before the fit) and train resnet (part B's sound
+run, counted so; it launches none). Every launch count is zeroed just
+before each and read just after it; the kernel comparisons of phases 2 and 11, the
 gradient checks, phase 7's dense reference forward, phase 13's
-in-process reference, phase 15's control and phase 16's pp=1 run and
-controls do not count.
+in-process reference, phase 15's control, phase 16's pp=1 run and
+controls, and phase 17's references and controls do not count.
 The last three lines are the card (as nvidia-smi prints it), the kernels
 JSON line and the result JSON line. Without a CUDA device, or without the
 ray_tpu_torch package beside this file, the script fails before printing
@@ -697,6 +732,54 @@ PP_COLLECTIVES = (("tick", "tick ppermutes"),
                   ("output", "output psum"),
                   ("x_mb.T", "embedding cotangent psum"),
                   ("stage_params.T", "stage-gradient sum"))
+# The train package (phase 17), in a runtime of its own: TRAIN_WORKERS
+# gang workers on the card (rank r on card r % device_count, all on the
+# one card here; gloo lets them share it).
+# Part A, GPT-2 small DDP by JaxTrainer (examples/gpt2_ddp_train.py at
+# full width): every rank holds phase 5's seed-0 params and takes its
+# TRAIN_DDP_SEQS / TRAIN_WORKERS sequences of phase 13's batch through
+# get_dataset_shard; a step runs loss_chunked, backward, the mean of the
+# gradients over the mesh's dp axis (one flat f32 buffer, through the
+# host and gloo) and GPT-2's AdamW; DDP_WARMUP + DDP_STEPS steps, a report
+# each, rank 0's last with a Checkpoint of its params (and wte in bf16).
+# Held to one process on the card that takes each rank's shard's gradient
+# in turn, averages them and steps the same AdamW: every mean loss within
+# TOL_DDP_LOSS, the step-0 mean gradient within TOL_DDP_GRAD (the largest
+# error of a tensor over its largest |value|) and every final param within
+# TOL_DDP_PARAM (absolute), bit for bit predicted (both add the same two
+# f32 gradients; halving is exact); the ranks bitwise equal after every
+# step. Two planted controls, run in the same gang after the sound run,
+# must fail those checks: the all-reduce skipped (each rank steps on its
+# own shard: the ranks part, and the step-0 gradient is one shard's) and
+# the sum not halved (the step-0 gradient twice the mean; AdamW all but
+# cancels the factor, yet through eps its params part by 9.1e-4 on the
+# H100). Each rank launches flash_fwd and flash_bwd 12 times a timed
+# step. The limits sit between the sound run (bit for bit on the H100)
+# and the controls (there: losses off by 0.63 and 4.7e-4, step-0
+# gradients by 1.27 and 1.0, params by 2.4e-3 and 9.1e-4).
+# Part B, ResNet-18/CIFAR by TorchTrainer (BASELINE's 2-worker config):
+# phase 10's config, SGD lr and momentum, RESNET_BATCH synthetic images
+# dealt to the ranks as a dataset (RESNET_BATCH / TRAIN_WORKERS a rank),
+# the functional ResNet wrapped in an nn.Module and passed through
+# train.torch.prepare_model (DDP over the gang's gloo world),
+# RESNET_DDP_STEPS steps with cuDNN deterministic: phase 10's 20, since
+# at its lr the loss first rises (4 steps took it from 2.30 to 3.14 on
+# the H100) and falls below its start after about 12. The ranks' params
+# bitwise equal after every step and within TOL_RESNET_DDP_PARAM of one
+# process stepping on the mean of the two shards' gradients; the
+# batch-norm state moves; no hand-written kernel launches. The control
+# (prepare_model bypassed) must part the ranks.
+TRAIN_WORKERS, TRAIN_DDP_SEQS = 2, 8
+DDP_WARMUP, DDP_STEPS = 1, 3
+TOL_DDP_LOSS = 1e-4
+TOL_DDP_GRAD = 1e-6
+TOL_DDP_PARAM = 1e-5
+DDP_SKIP_CONTROL = "all-reduce skipped"
+DDP_HALF_CONTROL = "sum not halved"
+RESNET_DDP_STEPS = RESNET_STEPS
+TOL_RESNET_DDP_PARAM = 1e-4
+RESNET_DDP_CONTROL = "prepare_model bypassed"
+TRAIN_COLLECTIVE_REPS = 3
 
 
 class SmokeFailure(Exception):
@@ -4471,6 +4554,702 @@ def phase_pp_spmd(wrappers, card, device=None):
                                 for f in wrappers[2:]})
 
 
+def _tree_digest(tree):
+    """One sha256 over a dict of tensors' per-tensor digests."""
+    import hashlib
+
+    return hashlib.sha256("".join(
+        d for _, d in sorted(_digests(tree).items())).encode()).hexdigest()
+
+
+def _gather(obj, group):
+    """[every rank's ``obj``] over ``group`` (gloo, through pickle)."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+def _max_rel_error(got, ref):
+    """The largest |got - ref| of a tensor over its largest |ref|, the
+    worst over the dict's tensors."""
+    return max(float((got[n].float() - ref[n].float()).abs().max())
+               / max(float(ref[n].float().abs().max()), 1e-30)
+               for n in ref)
+
+
+def _worst_abs(got, ref):
+    return max(float((got[n].float() - ref[n].float()).abs().max())
+               for n in ref)
+
+
+def ddp_gpt_loop(config):
+    """Phase 17, part A, on each rank of the JaxTrainer gang: GPT-2 small
+    from the seed-0 init on this rank's shard, DDP_WARMUP + DDP_STEPS
+    steps of loss_chunked, backward, the gradient mean over the mesh's dp
+    axis and AdamW, once for each of ``config["runs"]`` ("sound" first,
+    then the controls). The sound run's flash and fused counts and the
+    peak memory are zeroed just before its timed steps and read just
+    after; its ranks compare their params' digests after every step, and
+    rank 0 reports a Checkpoint of its params at the last step. Rank 0
+    holds every run to the one-process reference that the driver saved
+    at ``config["reference"]`` (its losses, step-0 mean gradient and
+    final params: a file, since half a gigabyte through the result queue
+    takes seconds a trip) and reports the errors."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import GPT, GPTConfig
+    from ray_tpu_torch.ops import (flash_attention_bwd, flash_attention_fwd,
+                                   ln_matmul_fwd, matmul_residual_fwd)
+
+    t_enter = time.time()
+    rank = train.get_context().get_world_rank()
+    mesh = train.get_mesh()
+    group = mesh.get_group("dp")
+    n = dist.get_world_size(group)
+    dev = torch.device(mesh.device_type)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    c = GPTConfig.small(use_flash=True)
+    model = GPT(c)
+    tokens = torch.stack(train.get_dataset_shard("train")).to(dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    counted = (flash_attention_fwd, flash_attention_bwd, ln_matmul_fwd,
+               matmul_residual_fwd)
+    steps = DDP_WARMUP + DDP_STEPS
+    ref = torch.load(config["reference"], map_location=dev) if rank == 0 \
+        else None
+    setup_s = time.time() - t_enter
+    for mode in config["runs"]:
+        t_run = time.perf_counter()
+        report_s = digest_s = 0.0
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        params = model.init(gen)
+        for p in params.values():
+            p.requires_grad_()
+        opt = torch.optim.AdamW(list(params.values()), lr=TRAIN_LR,
+                                weight_decay=TRAIN_WD)
+        losses, walls, reduce_ms, ranks_equal = [], [], [], []
+        for step in range(steps):
+            if mode == "sound" and step == DDP_WARMUP:
+                sync()           # the timed steps of the main path start
+                for f in counted:
+                    f.launches = 0
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+            # the ranks start each step together: what one did between
+            # steps (a report) stays out of the other's step
+            dist.barrier(group=group)
+            sync()
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = model.loss_chunked(params, tokens, targets)
+            loss.backward()
+            grads = [p.grad for p in params.values()]
+            loss_sum = loss.detach().float().cpu().reshape(1)
+            dist.all_reduce(loss_sum, group=group)
+            sync()
+            t1 = time.perf_counter()
+            if mode != DDP_SKIP_CONTROL:
+                flat = torch.cat([g.reshape(-1) for g in grads]).cpu()
+                dist.all_reduce(flat, group=group)
+                flat = flat.to(dev)
+                if mode != DDP_HALF_CONTROL:
+                    flat /= n
+                off = 0
+                for g in grads:
+                    g.copy_(flat[off:off + g.numel()].view_as(g))
+                    off += g.numel()
+                del flat
+            sync()
+            reduce_ms.append((time.perf_counter() - t1) * 1e3)
+            if step == 0:
+                grad0 = {nm: p.grad.detach().clone()
+                         for nm, p in params.items()}
+            opt.step()
+            sync()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(loss_sum / n))
+            if mode == "sound":
+                t2 = time.perf_counter()
+                ranks_equal.append(len(set(_gather(
+                    _tree_digest(params), group))) == 1)
+                digest_s += time.perf_counter() - t2
+            metrics = {"run": mode, "step": step, "loss": losses[-1]}
+            ckpt = None
+            if mode == "sound" and rank == 0 and step == steps - 1:
+                ckpt = train.Checkpoint.from_dict({
+                    "step": step,
+                    "params": {nm: p.detach() for nm, p in params.items()},
+                    "wte_bf16": params["wte"].detach().to(torch.bfloat16)})
+            t2 = time.perf_counter()
+            train.report(metrics, checkpoint=ckpt)
+            report_s += time.perf_counter() - t2
+        mine = {"walls": walls, "reduce_ms": reduce_ms,
+                "reduce_bytes": sum(g.numel() * 4 for g in grads),
+                "final_digest": _tree_digest(params),
+                "pid": os.getpid(), "device": str(params["wte"].device)}
+        if mode == "sound":
+            mine.update(launches={f.__name__: f.launches for f in counted},
+                        peak_bytes=torch.cuda.max_memory_allocated()
+                        if cuda else None, t_enter=t_enter,
+                        param_digests=_digests(params),
+                        wte_bf16_digest=_digests({"w": params["wte"].detach(
+                        ).to(torch.bfloat16).view(torch.int16)})["w"])
+        if ref is not None:
+            mine.update(
+                losses=losses,
+                loss_err=max(abs(a - b) for a, b in
+                             zip(losses, ref["losses"])),
+                grad0_err=_max_rel_error(grad0, ref["grad0"]),
+                grad0_bitwise=_digests(grad0) == _digests(ref["grad0"]),
+                param_err=_worst_abs({nm: p.detach() for nm, p in
+                                      params.items()}, ref["params"]))
+        mine["seconds"] = {k: round(v, 2) for k, v in (
+            ("set-up", setup_s), ("run", time.perf_counter() - t_run),
+            ("reports", report_s), ("digests", digest_s))}
+        every = _gather(mine, group)
+        train.report({"run": mode, "ranks": every,
+                      "ranks_equal": ranks_equal})
+        del params, opt, loss, grads, grad0
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+def resnet_ddp_loop(config):
+    """Phase 17, part B, on each rank of the TorchTrainer gang:
+    ResNet-18/CIFAR from the seed SEED + 3 init, wrapped in an nn.Module,
+    through train.torch.prepare_model (DDP) for the sound run and without
+    it for the control, RESNET_DDP_STEPS SGD steps with momentum on this
+    rank's images; the ranks compare their params' digests after every
+    step. Rank 0 holds every run's final params to the one-process
+    reference the driver saved at ``config["reference"]``. After the
+    sound run, one gloo all-reduce of a flat f32 buffer of the params'
+    size, timed."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import ResNet, ResNetConfig
+    from ray_tpu_torch.ops import (flash_attention_bwd, flash_attention_fwd,
+                                   ln_matmul_fwd, matmul_residual_fwd)
+    from ray_tpu_torch.train import torch as train_torch
+
+    class ResNetModule(torch.nn.Module):
+        """The functional ResNet as a module: its params as Parameters,
+        its batch-norm state as buffers, updated by each train-mode
+        forward, which returns the loss."""
+
+        def __init__(self, model, params, state):
+            super().__init__()
+            self.model = model
+            self.names = list(params)
+            self.state_names = list(state)
+            for i, nm in enumerate(self.names):
+                self.register_parameter(f"p{i}",
+                                        torch.nn.Parameter(params[nm]))
+            for i, nm in enumerate(self.state_names):
+                self.register_buffer(f"s{i}", state[nm].clone())
+
+        def tree(self):
+            return {nm: getattr(self, f"p{i}")
+                    for i, nm in enumerate(self.names)}
+
+        def state(self):
+            return {nm: getattr(self, f"s{i}")
+                    for i, nm in enumerate(self.state_names)}
+
+        def forward(self, images, labels):
+            loss, new_state = self.model.loss(self.tree(), self.state(),
+                                              images, labels)
+            with torch.no_grad():
+                for nm, buf in self.state().items():
+                    buf.copy_(new_state[nm])
+            return loss
+
+    t_enter = time.time()
+    rank = train.get_context().get_world_rank()
+    group = train.get_mesh().get_group("dp")
+    n = dist.get_world_size(group)
+    dev = torch.device(train.get_mesh().device_type)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    shard = train.get_dataset_shard("train")
+    images = torch.stack([im for im, _ in shard]).to(dev)
+    labels = torch.stack([lb for _, lb in shard]).to(dev)
+    model = ResNet(ResNetConfig.resnet18_cifar())
+    counted = (flash_attention_fwd, flash_attention_bwd, ln_matmul_fwd,
+               matmul_residual_fwd)
+    ref = torch.load(config["reference"], map_location=dev) if rank == 0 \
+        else None
+    setup_s = time.time() - t_enter
+    for mode in config["runs"]:
+        t_run = time.perf_counter()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 3)
+        params, state0 = model.init(gen)
+        module = ResNetModule(model, params, state0)
+        net = train_torch.prepare_model(module) if mode == "sound" \
+            else module
+        opt = torch.optim.SGD(net.parameters(), lr=RESNET_LR,
+                              momentum=RESNET_MOMENTUM)
+        if mode == "sound":
+            sync()               # the main path's steps start here
+            for f in counted:
+                f.launches = 0
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+        losses, walls, ranks_equal = [], [], []
+        for step in range(RESNET_DDP_STEPS):
+            dist.barrier(group=group)
+            sync()
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = net(images, labels)
+            loss.backward()
+            opt.step()
+            sync()
+            walls.append(time.perf_counter() - t0)
+            loss_sum = loss.detach().float().cpu().reshape(1)
+            dist.all_reduce(loss_sum, group=group)
+            losses.append(float(loss_sum / n))
+            ranks_equal.append(len(set(_gather(
+                _tree_digest(module.tree()), group))) == 1)
+            train.report({"run": mode, "step": step, "loss": losses[-1]})
+        final = {nm: p.detach() for nm, p in module.tree().items()}
+        mine = {"walls": walls, "pid": os.getpid(),
+                "device": str(final[module.names[0]].device),
+                "state_moved": sum(not torch.equal(module.state()[nm],
+                                                   state0[nm])
+                                   for nm in state0),
+                "state_digest": _tree_digest(module.state())}
+        out = {"run": mode}
+        if mode == "sound":
+            mine.update(launches={f.__name__: f.launches for f in counted},
+                        peak_bytes=torch.cuda.max_memory_allocated()
+                        if cuda else None, t_enter=t_enter)
+            flat = torch.cat([p.reshape(-1) for p in final.values()])
+            ms = []
+            for _ in range(TRAIN_COLLECTIVE_REPS):
+                sync()
+                t0 = time.perf_counter()
+                dist.all_reduce(flat, group=group)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            mine.update(reduce_ms=ms, reduce_bytes=flat.numel() * 4)
+        if ref is not None:
+            mine.update(param_err=_worst_abs(final, ref),
+                        bitwise=_digests(final) == _digests(ref))
+        mine["seconds"] = {"set-up": round(setup_s, 2),
+                           "run": round(time.perf_counter() - t_run, 2)}
+        out.update(ranks=_gather(mine, group), ranks_equal=ranks_equal)
+        train.report(out)
+        del net, module, opt, loss
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+def _train_fit(trainer_cls, loop, config, datasets, device_type, storage):
+    """trainer_cls(loop).fit() on TRAIN_WORKERS ranks; (result, the fit's
+    wall seconds, its start on the host's wall clock)."""
+    from ray_tpu_torch.train import RunConfig, ScalingConfig
+
+    t_wall = time.time()
+    t0 = time.perf_counter()
+    result = trainer_cls(
+        loop, train_loop_config=config, datasets=datasets,
+        scaling_config=ScalingConfig(num_workers=TRAIN_WORKERS,
+                                     device_type=device_type),
+        run_config=RunConfig(name=loop.__name__,
+                             storage_path=storage)).fit()
+    check(result.error is None, f"{loop.__name__}: fit failed: "
+                                f"{result.error!r}")
+    return result, time.perf_counter() - t0, t_wall
+
+
+def _runs(result):
+    """{run: (its step reports, its closing report)} of a fit's history
+    (rank 0's reports)."""
+    out = {}
+    for m in result.metrics_history:
+        steps, _ = out.setdefault(m["run"], ([], None))
+        if "ranks" in m:
+            out[m["run"]] = (steps, m)
+        else:
+            steps.append(m)
+    return out
+
+
+def ddp_reference(model, params0, tokens, targets, steps):
+    """Part A's one-process reference: each rank's shard's gradient in
+    turn, their mean, AdamW. (losses, step-0 mean gradient, final params,
+    step walls)."""
+    import torch
+
+    params = {nm: p.detach().clone().requires_grad_()
+              for nm, p in params0.items()}
+    opt = torch.optim.AdamW(list(params.values()), lr=TRAIN_LR,
+                            weight_decay=TRAIN_WD)
+    losses, walls = [], []
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, shard_losses = [], []
+        for r in range(TRAIN_WORKERS):
+            opt.zero_grad(set_to_none=True)
+            loss = model.loss_chunked(params, tokens[r::TRAIN_WORKERS],
+                                      targets[r::TRAIN_WORKERS])
+            loss.backward()
+            grads.append({nm: p.grad for nm, p in params.items()})
+            shard_losses.append(loss.detach().float())
+        for nm, p in params.items():
+            total = grads[0][nm]
+            for g in grads[1:]:
+                total = total + g[nm]
+            p.grad = total / TRAIN_WORKERS
+        if step == 0:
+            grad0 = {nm: p.grad.detach().clone() for nm, p in params.items()}
+        opt.step()
+        loss_sum = shard_losses[0]
+        for x in shard_losses[1:]:
+            loss_sum = loss_sum + x
+        losses.append(float(loss_sum / TRAIN_WORKERS))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del grads
+    return losses, grad0, {nm: p.detach() for nm, p in params.items()}, walls
+
+
+def resnet_reference(model, params0, state0, images, labels):
+    """Part B's one-process reference: SGD with momentum on the mean of
+    the two shards' gradients (train mode: batch statistics, so the
+    gradients do not read the running state). (final params, walls)."""
+    import torch
+
+    params = {nm: p.detach().clone().requires_grad_()
+              for nm, p in params0.items()}
+    opt = torch.optim.SGD(list(params.values()), lr=RESNET_LR,
+                          momentum=RESNET_MOMENTUM)
+    walls = []
+    for _ in range(RESNET_DDP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads = []
+        for r in range(TRAIN_WORKERS):
+            loss, _ = model.loss(params, state0, images[r::TRAIN_WORKERS],
+                                 labels[r::TRAIN_WORKERS])
+            grads.append(torch.autograd.grad(loss, list(params.values())))
+        for p, g0, g1 in zip(params.values(), *grads):
+            p.grad = (g0 + g1) / TRAIN_WORKERS
+        opt.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return {nm: p.detach() for nm, p in params.items()}, walls
+
+
+def phase_train(wrappers, card, device=None):
+    """Phase 17: the train package on the card (module docstring): part A,
+    GPT-2 small DDP by JaxTrainer, and part B, ResNet-18/CIFAR by
+    TorchTrainer, each on TRAIN_WORKERS gang workers, each held to its
+    one-process reference in this process. The driver's launch counts of
+    ``wrappers`` are zeroed just before each fit and read just after (it
+    launches nothing then); each rank counts its own sound run.
+    ``device`` (None: the card) is for a rehearsal on the CPU, where the
+    checks of the card fail by design."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.models import GPT, GPTConfig, ResNet, ResNetConfig
+    from ray_tpu_torch.train import Checkpoint, JaxTrainer, TorchTrainer
+
+    t_phase = time.perf_counter()
+    device_type = "cuda" if device is None else str(device)
+    dev = torch.device(device_type)
+    label = "train"
+    storage = tempfile.mkdtemp(prefix="rtpu_train_")
+    # the GPT gradient and params come back through the object store
+    ray_tpu_torch.init(num_cpus=4, object_store_memory=8 << 30)
+    try:
+        # ---- part A: GPT-2 small DDP by JaxTrainer ----------------------
+        c = GPTConfig.small(use_flash=True)
+        model = GPT(c)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        params0 = model.init(gen)
+        tokens = torch.randint(0, c.vocab_size, (TRAIN_DDP_SEQS, TRAIN_SEQ),
+                               generator=gen, device=dev)
+        targets = torch.roll(tokens, -1, dims=1)
+        t_ref = time.perf_counter()
+        ref_losses, ref_grad0, ref_params, ref_walls = ddp_reference(
+            model, params0, tokens, targets, DDP_WARMUP + DDP_STEPS)
+        reference = os.path.join(storage, "ddp_reference.pt")
+        torch.save({"losses": ref_losses, "grad0": ref_grad0,
+                    "params": ref_params}, reference)
+        del params0, ref_grad0
+        ref_s = time.perf_counter() - t_ref
+        gc.collect()
+        if device is None:
+            torch.cuda.empty_cache()
+        for f in wrappers:                 # the train ddp path starts here
+            f.launches = 0
+        ddp, ddp_s, ddp_t0 = _train_fit(
+            JaxTrainer, ddp_gpt_loop,
+            {"runs": ["sound", DDP_SKIP_CONTROL, DDP_HALF_CONTROL],
+             "reference": reference},
+            {"train": list(tokens.cpu())}, device_type, storage)
+        ddp_driver = {f.__name__: f.launches for f in wrappers}
+        t_ckpt = time.perf_counter()
+        ckpt = Checkpoint.from_directory(
+            ddp.checkpoint.to_directory()).to_dict()
+        ckpt_s = time.perf_counter() - t_ckpt
+        runs = _runs(ddp)
+        steps, closing = runs["sound"]
+        r0 = closing["ranks"][0]
+        losses = [m["loss"] for m in steps]
+        grad_err = r0["grad0_err"]
+        ckpt_params = {nm: torch.from_numpy(a)
+                       for nm, a in ckpt["params"].items()}
+        param_err = _worst_abs({nm: t.to(dev) for nm, t in
+                                ckpt_params.items()}, ref_params)
+        loss_err = max(abs(a - b) for a, b in zip(losses, ref_losses))
+        bitwise = (losses == ref_losses and r0["grad0_bitwise"]
+                   and r0["param_digests"] == _digests(ref_params))
+        ckpt_ok = (_digests(ckpt_params) == r0["param_digests"]
+                   and ckpt["wte_bf16"].dtype == torch.bfloat16
+                   and _digests({"w": ckpt["wte_bf16"].view(torch.int16)}
+                                )["w"] == r0["wte_bf16_digest"])
+        del ckpt, ckpt_params, ref_params
+        loss0 = math.log(c.padded_vocab) + c.d_model * 0.02 ** 2 / 2
+        devices = [r["device"] for r in closing["ranks"]]
+        print(f"[{label}] part A: GPT-2 small DDP by JaxTrainer, "
+              f"{TRAIN_WORKERS} workers (pids "
+              f"{[r['pid'] for r in closing['ranks']]}, driver "
+              f"{os.getpid()}, devices {devices}), {TRAIN_DDP_SEQS} x "
+              f"{TRAIN_SEQ} tokens dealt by get_dataset_shard: mean losses "
+              f"{losses}; reference {ref_losses}; step-0 target "
+              f"{loss0:.4f}; ranks bitwise equal after each step "
+              f"{closing['ranks_equal']}; against the reference: worst loss "
+              f"difference {loss_err} (limit {TOL_DDP_LOSS}), step-0 mean "
+              f"gradient {grad_err} (limit {TOL_DDP_GRAD}), worst final "
+              f"param {param_err} (limit {TOL_DDP_PARAM}); bit for bit "
+              f"(predicted): {bitwise}; the persisted checkpoint bitwise "
+              f"rank 0's params and bf16 wte: {ckpt_ok}")
+        check(all(d.startswith(device_type) for d in devices),
+              f"a train rank is not on {device_type}: {devices}")
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        check(abs(losses[0] - loss0) <= TOL_LOSS0,
+              f"step-0 loss {losses[0]} is not {loss0:.4f} within "
+              f"{TOL_LOSS0}")
+        check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+        check(all(closing["ranks_equal"]),
+              "the DDP ranks are not bitwise equal after every step")
+        check(loss_err <= TOL_DDP_LOSS,
+              f"a mean loss is off the reference's by {loss_err}")
+        check(grad_err <= TOL_DDP_GRAD,
+              f"the step-0 mean gradient is off the reference's by "
+              f"{grad_err}")
+        check(param_err <= TOL_DDP_PARAM,
+              f"a final param is off the reference's by {param_err}")
+        check(ckpt_ok, "the persisted checkpoint is not rank 0's params")
+        want = {"flash_attention_fwd": c.n_layer,
+                "flash_attention_bwd": c.n_layer}
+        per_step = [{nm: r["launches"][nm] / DDP_STEPS for nm in want}
+                    for r in closing["ranks"]]
+        print(f"[{label}] part A launches a timed step per rank "
+              f"{per_step} (want {want}); fused "
+              f"{[{k: v for k, v in r['launches'].items() if k not in want} for r in closing['ranks']]}"
+              f"; driver during the fit {ddp_driver}")
+        check(all(p == want for p in per_step),
+              f"launches a step per rank {per_step}, want {want}")
+        check(not any(v for r in closing["ranks"]
+                      for k, v in r["launches"].items() if k not in want),
+              "a DDP rank launched a fused kernel")
+        check(not any(ddp_driver.values()),
+              f"the driver launched {ddp_driver} during the fit")
+        ctl = {}
+        for mode in (DDP_SKIP_CONTROL, DDP_HALF_CONTROL):
+            _, m = runs[mode]
+            rs = m["ranks"]
+            ctl[mode] = dict(
+                ranks_equal=len({r["final_digest"] for r in rs}) == 1,
+                loss_err=rs[0]["loss_err"], grad0_err=rs[0]["grad0_err"],
+                param_err=rs[0]["param_err"])
+            print(f"[{label}] part A control '{mode}' against the "
+                  f"reference: {ctl[mode]}")
+            fails = (not ctl[mode]["ranks_equal"]
+                     or ctl[mode]["loss_err"] > TOL_DDP_LOSS
+                     or ctl[mode]["grad0_err"] > TOL_DDP_GRAD
+                     or ctl[mode]["param_err"] > TOL_DDP_PARAM)
+            check(fails, f"control '{mode}' passes the checks")
+        ddp_walls = [r["walls"][DDP_WARMUP:] for r in closing["ranks"]]
+        step_p50 = statistics.median(ddp_walls[0])
+        ref_p50 = statistics.median(ref_walls[DDP_WARMUP:])
+        reduce_ms = [statistics.median(r["reduce_ms"][DDP_WARMUP:])
+                     for r in closing["ranks"]]
+        up_s = max(r["t_enter"] for r in closing["ranks"]) - ddp_t0
+        peaks = [r["peak_bytes"] for r in closing["ranks"]]
+
+        def gib(b):
+            return None if b is None else round(b / 2**30, 2)
+
+        print(f"[{label}] part A {card}: step wall per rank "
+              f"{[[round(t * 1e3, 2) for t in w] for w in ddp_walls]} ms "
+              f"(rank 0 p50 {step_p50 * 1e3:.2f}) against the reference's "
+              f"{[round(t * 1e3, 2) for t in ref_walls]} ms (p50 "
+              f"{ref_p50 * 1e3:.2f}: both shards in turn); the gradient "
+              f"mean (to the host, gloo all-reduce, back) p50 "
+              f"{[round(x, 2) for x in reduce_ms]} ms a step per rank for "
+              f"{r0['reduce_bytes']} B; gang up {up_s:.1f} s after fit(); "
+              f"peak allocated per rank {[gib(p) for p in peaks]} GiB; "
+              f"fit {ddp_s:.1f} s (in the ranks, s: "
+              f"{[r['seconds'] for r in closing['ranks']]}; controls "
+              f"{[runs[m][1]['ranks'][0]['seconds'] for m in ctl]}); the "
+              f"reference and its file {ref_s:.1f} s; the checkpoint read "
+              f"back {ckpt_s:.1f} s")
+        gc.collect()
+        if device is None:
+            torch.cuda.empty_cache()
+        # ---- part B: ResNet-18/CIFAR by TorchTrainer ---------------------
+        rc = ResNetConfig.resnet18_cifar()
+        rmodel = ResNet(rc)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 3)
+        rparams0, rstate0 = rmodel.init(gen)
+        images = torch.randn((RESNET_BATCH, 32, 32, 3), generator=gen,
+                             device=dev)
+        labels = torch.randint(0, rc.num_classes, (RESNET_BATCH,),
+                               generator=gen, device=dev)
+        cudnn = (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            rref, rref_walls = resnet_reference(rmodel, rparams0, rstate0,
+                                                images, labels)
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = cudnn
+        rreference = os.path.join(storage, "resnet_reference.pt")
+        torch.save(rref, rreference)
+        for f in wrappers:              # the train resnet path starts here
+            f.launches = 0
+        rn, rn_s, rn_t0 = _train_fit(
+            TorchTrainer, resnet_ddp_loop,
+            {"runs": ["sound", RESNET_DDP_CONTROL],
+             "reference": rreference},
+            {"train": list(zip(images.cpu(), labels.cpu()))}, device_type,
+            storage)
+        rn_driver = {f.__name__: f.launches for f in wrappers}
+        rruns = _runs(rn)
+        rsteps, rclosing = rruns["sound"]
+        rlosses = [m["loss"] for m in rsteps]
+        rparam_err = rclosing["ranks"][0]["param_err"]
+        rbitwise = rclosing["ranks"][0]["bitwise"]
+        moved = [r["state_moved"] for r in rclosing["ranks"]]
+        states_equal = len({r["state_digest"]
+                            for r in rclosing["ranks"]}) == 1
+        _, rctl = rruns[RESNET_DDP_CONTROL]
+        rlaunches = [r["launches"] for r in rclosing["ranks"]]
+        print(f"[{label}] part B: ResNet-18/CIFAR by TorchTrainer, "
+              f"{TRAIN_WORKERS} workers, {RESNET_BATCH // TRAIN_WORKERS} "
+              f"images a rank: mean losses {rlosses}; ranks' params "
+              f"bitwise equal after each step {rclosing['ranks_equal']}; "
+              f"worst final param off the reference's {rparam_err} (limit "
+              f"{TOL_RESNET_DDP_PARAM}; bit for bit: {rbitwise}); "
+              f"batch-norm buffers moved per rank {moved} of "
+              f"{len(rstate0)}; the ranks' batch-norm state equal after "
+              f"the last step: {states_equal} (DDP's broadcast_buffers "
+              f"hands every rank rank 0's buffers before each forward; "
+              f"each forward then updates them from its own shard); "
+              f"launches per rank {rlaunches}; driver during the fit "
+              f"{rn_driver}; control '{RESNET_DDP_CONTROL}': ranks equal "
+              f"{rctl['ranks_equal']}, worst param off the reference's "
+              f"{rctl['ranks'][0]['param_err']}")
+        check(all(math.isfinite(x) for x in rlosses), f"losses {rlosses}")
+        check(rlosses[-1] < rlosses[0], f"loss did not fall: {rlosses}")
+        check(all(rclosing["ranks_equal"]),
+              "the ResNet ranks are not bitwise equal after every step")
+        check(rparam_err <= TOL_RESNET_DDP_PARAM,
+              f"a ResNet param is off the reference's by {rparam_err}")
+        check(all(m == len(rstate0) for m in moved),
+              f"batch-norm buffers did not move: {moved}")
+        check(not any(v for r in rlaunches for v in r.values()),
+              f"a ResNet rank launched {rlaunches}")
+        check(not any(rn_driver.values()),
+              f"the driver launched {rn_driver} during the fit")
+        check(not all(rctl["ranks_equal"]),
+              f"control '{RESNET_DDP_CONTROL}' passes the ranks check")
+        rwalls = [r["walls"] for r in rclosing["ranks"]]
+        rreduce = [statistics.median(r["reduce_ms"])
+                   for r in rclosing["ranks"]]
+        rup_s = max(r["t_enter"] for r in rclosing["ranks"]) - rn_t0
+        rpeaks = [r["peak_bytes"] for r in rclosing["ranks"]]
+        phase_s = time.perf_counter() - t_phase
+        print(f"[{label}] part B {card}: step wall per rank "
+              f"{[[round(t * 1e3, 2) for t in w] for w in rwalls]} ms "
+              f"(rank 0 p50 {statistics.median(rwalls[0]) * 1e3:.2f}) "
+              f"against the reference's "
+              f"{[round(t * 1e3, 2) for t in rref_walls]} ms (p50 "
+              f"{statistics.median(rref_walls) * 1e3:.2f}: both shards in "
+              f"turn); one gloo all-reduce of the params' "
+              f"{rclosing['ranks'][0]['reduce_bytes']} B, measured apart: "
+              f"{[round(x, 2) for x in rreduce]} ms per rank; gang up "
+              f"{rup_s:.1f} s after fit(); peak allocated per rank "
+              f"{[gib(p) for p in rpeaks]} GiB; fit {rn_s:.1f} s (in the "
+              f"ranks, s: {[r['seconds'] for r in rclosing['ranks']]}; "
+              f"control {rctl['ranks'][0]['seconds']}); the phase took "
+              f"{phase_s:.1f} s")
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    # each path's launches: its ranks' sound runs
+    launches = {path: {f.__name__: sum(r["launches"][f.__name__]
+                                       for r in ranks) for f in wrappers}
+                for path, ranks in (("train_ddp", closing["ranks"]),
+                                    ("train_resnet", rclosing["ranks"]))}
+    return dict(
+        ddp=dict(losses=losses, reference_losses=ref_losses,
+                 ranks_equal=closing["ranks_equal"], bitwise=bitwise,
+                 loss_err=loss_err, grad0_err=grad_err, param_err=param_err,
+                 checkpoint_ok=ckpt_ok, controls=ctl,
+                 launches_per_step=per_step, step_wall_s=ddp_walls,
+                 step_p50_s=step_p50, reference_step_wall_s=ref_walls,
+                 reference_step_p50_s=ref_p50, reduce_ms=reduce_ms,
+                 reduce_bytes=r0["reduce_bytes"], up_s=up_s,
+                 peak_bytes=peaks, fit_s=ddp_s),
+        resnet=dict(losses=rlosses, ranks_equal=rclosing["ranks_equal"],
+                    param_err=rparam_err, bitwise=rbitwise,
+                    state_moved=moved, states_equal=states_equal,
+                    control_ranks_equal=rctl["ranks_equal"],
+                    control_param_err=rctl["ranks"][0]["param_err"],
+                    launches=rlaunches, step_wall_s=rwalls,
+                    reference_step_wall_s=rref_walls, reduce_ms=rreduce,
+                    reduce_bytes=rclosing["ranks"][0]["reduce_bytes"],
+                    up_s=rup_s, peak_bytes=rpeaks, fit_s=rn_s),
+        phase_s=phase_s, launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -4576,6 +5355,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         pp_spmd = phase_pp_spmd(wrappers, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_phase = phase_train(wrappers, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4612,14 +5394,20 @@ def main() -> int:
                         pipeline=pipeline["launches"]["flash_fwd"],
                         pipeline_fsdp=fsdp_launches(flash_attention_fwd),
                         tp=tp_serving["launches"],
-                        pp_spmd=pp_spmd["launches"]["flash_fwd"])
+                        pp_spmd=pp_spmd["launches"]["flash_fwd"],
+                        **{path: counts[flash_attention_fwd.__name__]
+                           for path, counts in
+                           train_phase["launches"].items()})
     bwd_launches = dict(training=training["launches"]["flash_bwd"],
                         training_fused=training_fused["launches"]["flash_bwd"],
                         moe_training=moe_training["launches"]["flash_bwd"],
                         disagg=disagg_launches(flash_attention_bwd),
                         pipeline=pipeline["launches"]["flash_bwd"],
                         pipeline_fsdp=fsdp_launches(flash_attention_bwd),
-                        pp_spmd=pp_spmd["launches"]["flash_bwd"])
+                        pp_spmd=pp_spmd["launches"]["flash_bwd"],
+                        **{path: counts[flash_attention_bwd.__name__]
+                           for path, counts in
+                           train_phase["launches"].items()})
 
     def pipeline_launches(wrapper):
         # the driver's count and every stage's on the pipeline path
@@ -4685,7 +5473,10 @@ def main() -> int:
                     else matmul_residual_fwd),
                 "pp_spmd": pp_spmd["fused_launches"][
                     (ln_matmul_fwd if name == "ln_matmul"
-                     else matmul_residual_fwd).__name__]},
+                     else matmul_residual_fwd).__name__],
+                **{path: counts[(ln_matmul_fwd if name == "ln_matmul"
+                                 else matmul_residual_fwd).__name__]
+                   for path, counts in train_phase["launches"].items()}},
             "max_abs_err": bf16_max_err(rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -4703,6 +5494,7 @@ def main() -> int:
                "moe_training": moe_training, "vit": vit, "resnet": resnet,
                "head_dims": head_dims, "gpt_serving": gpt_serving,
                "disagg": disagg, "pipeline": pipeline, "pp_spmd": pp_spmd,
+               "train": train_phase,
                "fused_backward_products": fused_bwd, "lm_head": lm_head}
     print(f"[summary] {json.dumps(summary)}")
     print(card)

@@ -59,9 +59,17 @@ HALF_CPU = {"CPU": 0.5}
 @pytest.fixture(scope="module")
 def rt():
     # logical CPUs: the gang and the largest engine (8 ranks) side by side
-    runtime = ray_tpu_torch.init(num_cpus=16)
-    yield runtime
-    ray_tpu_torch.shutdown()
+    # one intra-op thread here and in every worker the runtime starts
+    # (they inherit OMP_NUM_THREADS): the shapes are tiny, and the cores
+    # go to the test files running beside this one
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        runtime = ray_tpu_torch.init(num_cpus=16)
+        yield runtime
+        ray_tpu_torch.shutdown()
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

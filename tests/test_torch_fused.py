@@ -204,7 +204,7 @@ def test_fused_gpt_loss_and_grads(fused_pair, reference, monkeypatch):
     if reference == "jax fused":
         calls = [_spy(monkeypatch, "_ln_matmul_kernel"),
                  _spy(monkeypatch, "_mm_res_kernel")]
-        want_loss, want = jax.value_and_grad(jm.loss)(
+        want_loss, want = jax.jit(jax.value_and_grad(jm.loss))(
             jp, jnp.asarray(tokens), jnp.asarray(targets))
         assert all(calls), "the JAX model did not reach both kernels"
         loss_tol, rtol, atol_scale = 1e-4, 2e-4, 2e-4

@@ -121,7 +121,7 @@ def test_apply_logits_match_jax(use_flash):
     interpret mode) and the port's runs its flash wrapper."""
     jm, jp, tm, tp = _pair(use_flash=use_flash)
     tokens, _ = _tokens(1, 2, 128)
-    want = np.asarray(jm.apply(jp, jnp.asarray(tokens)))
+    want = np.asarray(jax.jit(jm.apply)(jp, jnp.asarray(tokens)))
     got = tm.apply(tp, torch.from_numpy(tokens))
     assert got.dtype == torch.float32
     assert tuple(got.shape) == (2, 128, tm.config.padded_vocab)
@@ -244,7 +244,8 @@ def test_loss_chunked_bf16_matches_jax():
     tp = gpt_params_from_numpy({n: np.asarray(a) for n, a in jp.items()},
                                tm.config, torch.device("cpu"))
     tokens, targets = _tokens(5, 2, 128)
-    j_loss, j_grads = jax.value_and_grad(jm.loss_chunked)(
+    j_loss, j_grads = jax.jit(jax.value_and_grad(jm.loss_chunked),
+                              static_argnames="num_chunks")(
         jp, jnp.asarray(tokens), jnp.asarray(targets), num_chunks=2)
     params = {n: p.clone().requires_grad_() for n, p in tp.items()}
     loss = tm.loss_chunked(params, torch.from_numpy(tokens),

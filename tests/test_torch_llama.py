@@ -190,7 +190,7 @@ def test_loss_and_flops_match_jax(pair):
     jm, jp, tm, tp = pair
     tokens = np.random.default_rng(4).integers(0, 512, (2, 16))
     targets = np.roll(tokens, -1, axis=1)
-    want = jm.loss(jp, jnp.asarray(tokens), jnp.asarray(targets))
+    want = jax.jit(jm.loss)(jp, jnp.asarray(tokens), jnp.asarray(targets))
     got = tm.loss(tp, torch.from_numpy(tokens), torch.from_numpy(targets))
     np.testing.assert_allclose(got.item(), float(want), atol=SURFACE_TOL,
                                rtol=0)

@@ -125,7 +125,7 @@ def test_apply_logits_and_aux_match_jax(use_flash):
     head_dim 16 (interpret mode) and the port its flash wrapper."""
     jm, jp, tm, tp = _pair(use_flash=use_flash)
     tokens, _ = _tokens(1)
-    j_logits, j_aux = jm.apply(jp, jnp.asarray(tokens))
+    j_logits, j_aux = jax.jit(jm.apply)(jp, jnp.asarray(tokens))
     logits, aux = tm.apply(tp, torch.from_numpy(tokens))
     assert logits.dtype == torch.float32 and aux.dtype == torch.float32
     assert tuple(logits.shape) == (2, 128, tm.config.padded_vocab)
@@ -229,7 +229,7 @@ def test_grads_match_jax(pair):
     kernel at S=128)."""
     jm, jp, tm, tp = pair
     tokens, targets = _tokens(4)
-    j_loss, j_grads = jax.value_and_grad(jm.loss)(
+    j_loss, j_grads = jax.jit(jax.value_and_grad(jm.loss))(
         jp, jnp.asarray(tokens), jnp.asarray(targets))
     params = {n: p.clone().requires_grad_() for n, p in tp.items()}
     loss = tm.loss(params, torch.from_numpy(tokens),

@@ -45,9 +45,17 @@ SMALL_CHANNEL = 1 << 18
 
 @pytest.fixture(scope="module")
 def rt():
-    runtime = ray_tpu_torch.init(num_cpus=4)
-    yield runtime
-    ray_tpu_torch.shutdown()
+    # one intra-op thread here and in every worker the runtime starts
+    # (they inherit OMP_NUM_THREADS): the shapes are tiny, and the cores
+    # go to the test files running beside this one
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        runtime = ray_tpu_torch.init(num_cpus=4)
+        yield runtime
+        ray_tpu_torch.shutdown()
+    torch.set_num_threads(threads)
 
 
 def _mlp_chunks(num_chunks, width=8, seed=0):

@@ -12,6 +12,8 @@ on both sides, summation order only); losses 2e-5 relative; gradients
 2e-4 of each parameter's largest |gradient| (atol) and 2e-4 relative, as
 tests/test_ops.py:51.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -41,10 +43,25 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
+@functools.lru_cache(maxsize=None)
 def _pair(name):
+    """(jax model, jax params and state, port model, port params and
+    state, images, labels) of one config, built once: no test changes
+    them. The JAX init is compiled; a jitted dict comes back with its
+    names sorted, so they are put back in the order the init made them
+    (read while it was traced)."""
     kw, size = CONFIGS[name]
     jm = JResNet(JConfig(dtype=jnp.float32, **kw))
-    jp, js = jm.init(jax.random.PRNGKey(0))
+    order = []
+
+    def init(key):
+        p, s = jm.init(key)
+        order[:] = [list(p), list(s)]
+        return p, s
+
+    jp, js = jax.jit(init)(jax.random.PRNGKey(0))
+    jp, js = ({n: tree[n] for n in names}
+              for tree, names in zip((jp, js), order))
     tm = ResNet(ResNetConfig(dtype=torch.float32, **kw))
     tp, ts = resnet_params_from_numpy(
         {n: np.asarray(a) for n, a in jp.items()},
@@ -120,7 +137,7 @@ def test_loss_grads_match_jax(name):
     def jloss(p):
         return jm.loss(p, js, jnp.asarray(images), jnp.asarray(labels))[0]
 
-    j_loss, j_grads = jax.value_and_grad(jloss)(jp)
+    j_loss, j_grads = jax.jit(jax.value_and_grad(jloss))(jp)
     params = {n: p.clone().requires_grad_() for n, p in tp.items()}
     loss, _ = tm.loss(params, ts, torch.from_numpy(images),
                       torch.from_numpy(labels))

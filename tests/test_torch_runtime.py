@@ -23,9 +23,14 @@ from ray_tpu_torch.parallel import quant
 
 @pytest.fixture(scope="module")
 def rt():
-    runtime = ray_tpu_torch.init(num_cpus=4)
-    yield runtime
-    ray_tpu_torch.shutdown()
+    # one intra-op thread in every worker the runtime starts (they
+    # inherit OMP_NUM_THREADS): the shapes are tiny, and the cores go to
+    # the test files running beside this one
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        runtime = ray_tpu_torch.init(num_cpus=4)
+        yield runtime
+        ray_tpu_torch.shutdown()
 
 
 # ---------------------------------------------------------------------------

@@ -264,9 +264,13 @@ def test_gpt_fused_entry_exit_under_tp_raises():
 def rt():
     # logical CPUs: every rank actor of the gang and of the engines (up
     # to 14 alive at once) holds some, and they mostly wait on each other
-    runtime = ray_tpu_torch.init(num_cpus=16)
-    yield runtime
-    ray_tpu_torch.shutdown()
+    # one intra-op thread in every worker the runtime starts (they
+    # inherit OMP_NUM_THREADS), as in this process
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        runtime = ray_tpu_torch.init(num_cpus=16)
+        yield runtime
+        ray_tpu_torch.shutdown()
 
 
 @pytest.fixture(scope="class")
@@ -631,9 +635,11 @@ class TestEngineTp:
         """The tensor-parallel dense apply on each engine's ranks (tp=2 and
         tp=4) equals JAX apply on the same weights to 2e-5 (f32: summation
         order only), every rank gathering the full vocabulary."""
+        import jax
+
         jm, jp = pairs[model_name][0]
         tokens = np.random.RandomState(1).randint(0, 512, (2, 16))
-        want = np.asarray(jm.apply(jp, tokens))
+        want = np.asarray(jax.jit(jm.apply)(jp, tokens))
 
         def body(w, toks):
             import torch as t

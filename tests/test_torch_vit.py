@@ -113,7 +113,7 @@ def test_patchify_matches_jax():
 def test_apply_and_grads_match_jax(remat, monkeypatch):
     jm, jp, tm, tp = _pair(remat)
     images, labels = _batch(2)
-    want = jm.apply(jp, jnp.asarray(images))
+    want = jax.jit(jm.apply)(jp, jnp.asarray(images))
     flash_calls = []
     monkeypatch.setattr(vit_mod, "flash_attention",
                         lambda *a, **k: flash_calls.append(a))
@@ -121,7 +121,7 @@ def test_apply_and_grads_match_jax(remat, monkeypatch):
     assert got.dtype == torch.float32 and tuple(got.shape) == (3, 10)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                rtol=TOL)
-    j_loss, j_grads = jax.value_and_grad(jm.loss)(
+    j_loss, j_grads = jax.jit(jax.value_and_grad(jm.loss))(
         jp, jnp.asarray(images), jnp.asarray(labels))
     params = {n: p.clone().requires_grad_() for n, p in tp.items()}
     blocks = []

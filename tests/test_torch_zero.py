@@ -38,9 +38,17 @@ CPU = "cpu"
 
 @pytest.fixture(scope="module")
 def rt():
-    runtime = ray_tpu_torch.init(num_cpus=4)
-    yield runtime
-    ray_tpu_torch.shutdown()
+    # one intra-op thread here and in every worker the runtime starts
+    # (they inherit OMP_NUM_THREADS): the shapes are tiny, and the cores
+    # go to the test files running beside this one
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        runtime = ray_tpu_torch.init(num_cpus=4)
+        yield runtime
+        ray_tpu_torch.shutdown()
+    torch.set_num_threads(threads)
 
 
 def _tree(seed=0):
