@@ -249,8 +249,36 @@ Phases, each of which exits non-zero on failure:
               mean's ms and bytes, gang start-up, each rank's peak
               memory, the seconds of the fits and the ranks' reports,
               and the phase's seconds.
+18. remat   — right after phase 6: GPT-2 small as phase 5 (B=40, S=1024,
+              loss_chunked over 10 chunks, seed-0 params) with
+              GPTConfig.remat off and on: one loss and backward each on
+              the same batch, bitwise equal (else within the limit below,
+              the largest difference printed), the same with dropout 0.1
+              and one seed, and a planted control (masks drawn anew from
+              the generator in the recompute) that must fail; then 1 + 3
+              AdamW steps each: peak memory, step p50, flash launches a
+              step (12 + 12 either way: the policy saves flash's out and
+              lse). Then Llama at Llama-2-7B's width cut to 4 layers, B=1,
+              S=4096: one loss and backward with remat off and on, the
+              loss bitwise; peak memory above the params and the flash
+              launches (full-block remat: 8 flash_fwd against 4).
+19. tp train — after phase 16, in a runtime of its own: a gang of four
+              gloo rank processes on the card. Part A, GPT-2 small
+              (remat on, phase 16's seed-0 params and batch) by
+              GPT(tp=2).loss_chunked on two ranks; its planted control
+              (each row-parallel exit's backward summing the cotangent
+              over tp); part B, GPT.loss_pp at MeshSpec(pp=2, tp=2) on
+              four. Each rank holds its step-0 loss and gradient shards to
+              the one-process loss_chunked / loss_pp it computes itself;
+              the ranks of a pp group are bitwise equal and the
+              replicated params equal on every rank; then 1 + 3 AdamW
+              steps on each rank's shards. Prints the step p50, the
+              collectives' ms and bytes by kind, the flash launches a rank
+              (12 + 12 a step in part A, 30 + 30 in part B), peak memory,
+              one profiled step's busy share per rank, and the phase's
+              seconds.
 
-Fourteen main paths are counted: serving (phases 3-4), training (phase
+Seventeen main paths are counted: serving (phases 3-4), training (phase
 5's steps), fused training (phase 6's steps), MoE training (phase 8's
 steps), ViT and ResNet training (phases 9-10, which launch no
 hand-written kernel), GPT serving (phase 7's timed engine runs, which
@@ -261,16 +289,21 @@ engine steps: the driver's counts, zeroed just before them, and each
 stage's), the fsdp pipeline (phase 15's engine steps, counted so, with
 its peers'), tp (phase 14's apply on the two ranks, counted on each
 rank from just before it to just after it; the control's launches do
-not count) and pp spmd (phase 16's timed steps, counted on each rank
+not count), pp spmd (phase 16's timed steps, counted on each rank
 from just before them to just after them, and the driver's, zeroed
 just before the run), train ddp (phase 17 part A's sound run, counted on
 each rank from just before its timed steps to just after them, and the
-driver's, zeroed just before the fit) and train resnet (part B's sound
-run, counted so; it launches none). Every launch count is zeroed just
-before each and read just after it; the kernel comparisons of phases 2 and 11, the
-gradient checks, phase 7's dense reference forward, phase 13's
-in-process reference, phase 15's control, phase 16's pp=1 run and
-controls, and phase 17's references and controls do not count.
+driver's, zeroed just before the fit), train resnet (part B's sound
+run, counted so; it launches none), remat (phase 18's remat-on timed
+steps and its Llama remat-on step), tp train and pp tp (phase 19's parts
+A and B, counted on each rank from just before their timed steps to
+just after them, and the driver's, zeroed just before each run). Every
+launch count is zeroed just before each and read just after it; the
+kernel comparisons of phases 2 and 11, the gradient checks, phase 7's
+dense reference forward, phase 13's in-process reference, phase 15's
+control, phase 16's pp=1 run and controls, phase 17's references and
+controls, phase 18's remat-off runs, one-step checks and control, and
+phase 19's references and control do not count.
 The last three lines are the card (as nvidia-smi prints it), the kernels
 JSON line and the result JSON line. Without a CUDA device, or without the
 ray_tpu_torch package beside this file, the script fails before printing
@@ -780,6 +813,56 @@ RESNET_DDP_STEPS = RESNET_STEPS
 TOL_RESNET_DDP_PARAM = 1e-4
 RESNET_DDP_CONTROL = "prepare_model bypassed"
 TRAIN_COLLECTIVE_REPS = 3
+# Remat (phase 18). Part 1: GPT-2 small as phase 5 (seed-0 params, B =
+# TRAIN_BATCH, S = TRAIN_SEQ, loss_chunked over HEAD_CHUNK_ROWS-row chunks,
+# GPT-2's AdamW) with remat off and on: one loss and backward each on the
+# same batch, and the same with dropout REMAT_DROPOUT and one generator
+# seed. The losses and every gradient are bitwise equal (the recompute
+# runs the same ops on the same values; the dropout masks come from a
+# generator seeded per layer); where they are not, the largest relative
+# difference (of a tensor's largest |value|) is printed and held to
+# TOL_REMAT. The planted control REMAT_CONTROL (each block drawing its
+# masks from the model's one generator, which the recompute has moved
+# on) must fail it. Then REMAT_WARMUP + REMAT_STEPS AdamW steps each:
+# peak memory, step p50 and flash launches a step (GPT's policy saves
+# flash's out and lse, so 12 flash_fwd a step either way). Part 2: Llama
+# at Llama-2-7B's width (d_model 4096, 32 heads of 128, d_ff 11008,
+# vocab 32000), cut to REMAT_LLAMA_LAYERS layers, B=1, S =
+# REMAT_LLAMA_SEQ, bf16, seed-0 params: one loss and backward with remat
+# off and on; the loss bitwise, the gradients as above; the full-block
+# remat launches flash_fwd twice a layer.
+REMAT_WARMUP, REMAT_STEPS = 1, 3
+TOL_REMAT = 1e-6
+REMAT_DROPOUT = 0.1
+REMAT_CONTROL = "dropout masks drawn anew in the recompute"
+REMAT_LLAMA_LAYERS, REMAT_LLAMA_SEQ = 4, 4096
+# Tensor-parallel training (phase 19), in a runtime of its own: a gang of
+# TP_TRAIN_RANKS gloo rank processes on the card, GPT-2 small (remat on)
+# from the seed-0 init and phase 16's batch. Part A: GPT(tp=TP_TRAIN)
+# .loss_chunked over PP_SPMD_MICROBATCHES chunks on two ranks; part B:
+# loss_pp at pp=PP_SPMD x tp=TP_TRAIN over PP_SPMD_MICROBATCHES
+# microbatches on four. Each rank computes the one-process reference
+# (loss_chunked, or loss_pp at pp=1) on the full params and holds its
+# step-0 loss within TOL_TP_LOSS of it and each of its gradient shards
+# (GPT.shard_param of the reference's) within TOL_TP_GRAD, as
+# ||g - g_ref|| / ||g_ref|| per parameter (w_qkv and b_qkv per third,
+# b_qkv's key third left out: phase 5's measure). In bf16 the split
+# rounds at other places than one process (the row-parallel partials are
+# summed in f32, the column-parallel inputs' cotangents are bf16 partials
+# summed over tp), as phase 5's flash and reference models do; the
+# forward differs only where an f32 sum in another order rounds to
+# another bf16 value. The planted control TP_TRAIN_CONTROL (the gradient
+# through each row-parallel exit counted tp times) must fail the gradient
+# check. The ranks of a pp group are bitwise equal, and the replicated
+# params bitwise equal on every rank. Then TP_TRAIN_WARMUP +
+# TP_TRAIN_STEPS AdamW steps on each rank's shards.
+TP_TRAIN, TP_TRAIN_RANKS = 2, 4
+TP_TRAIN_WARMUP, TP_TRAIN_STEPS = 1, 3
+TOL_TP_LOSS = 1e-3
+TOL_TP_GRAD = 0.1
+TP_TRAIN_CONTROL = "row-parallel exit's cotangent summed over tp"
+TP_SPLIT_PARAMS = ("wte", "w_qkv", "b_qkv", "w_proj", "w_fc", "b_fc",
+                   "w_out")
 
 
 class SmokeFailure(Exception):
@@ -1921,6 +2004,257 @@ def phase_fused_grad_check(model, params):
         TOL_FUSED_GRAD, shown=FUSED_SHOWN)
 
 
+def remat_control_layer(self, x, lp, seed):
+    """REMAT_CONTROL, swapped in for GPT._layer: each block draws its
+    dropout masks from the model's one generator (``_control_gen``), so
+    the recompute draws new ones."""
+    from ray_tpu_torch.ops.remat import remat
+
+    def block(x, lp):
+        return self._block(x, lp, self._control_gen)
+
+    if self.config.remat:
+        return remat(block, x, lp, saved=self.REMAT_SAVED)
+    return block(x, lp)
+
+
+def remat_difference(a, b):
+    """(bitwise equal, the largest |a - b| over the largest |b| of any
+    tensor, its name) of two {name: tensor} dicts."""
+    import torch
+
+    same = all(torch.equal(a[n], b[n]) for n in b)
+    worst = max((float((a[n] - b[n]).abs().max())
+                 / max(float(b[n].abs().max()), 1e-30), n) for n in b)
+    return same, worst[0], worst[1]
+
+
+def phase_remat(wrappers):
+    """Phase 18: remat at full width (module docstring). Part 1, GPT-2
+    small as phase 5 with remat off and on: one loss and backward each on
+    the same batch (bitwise, else within TOL_REMAT), then REMAT_WARMUP +
+    REMAT_STEPS AdamW steps each (peak memory, step p50, flash launches
+    a step); the dropout case, and its planted control, which must fail.
+    Part 2, Llama at Llama-2-7B's width cut to REMAT_LLAMA_LAYERS layers:
+    one loss and backward each. The launch counts of ``wrappers`` are
+    zeroed just before each remat-on run and read just after it (the
+    remat path); the remat-off runs and the controls do not count."""
+    import torch
+
+    from ray_tpu_torch.models import GPT, GPTConfig, Llama, LlamaConfig
+
+    t_phase = time.perf_counter()
+    fwd, bwd = wrappers[:2]
+    remat_launches = {f.__name__: 0 for f in wrappers}
+
+    def counted(fn, count):
+        """fn(), and the launches of ``wrappers`` while it ran."""
+        before = {f.__name__: f.launches for f in wrappers}
+        out = fn()
+        torch.cuda.synchronize()
+        got = {f.__name__: f.launches - before[f.__name__]
+               for f in wrappers}
+        if count:
+            for name, n in got.items():
+                remat_launches[name] += n
+        return out, got
+
+    # ---- part 1: GPT-2 small ----------------------------------------------
+    base = GPTConfig.small(use_flash=True)
+    check((base.n_layer, base.d_model, base.n_head, base.head_dim,
+           base.padded_vocab, base.remat) == (12, 768, 12, 64, 50304, True),
+          f"not GPT-2 small with remat on by default: {base}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = {n: p.requires_grad_()
+              for n, p in GPT(base).init(gen).items()}
+    tokens = torch.randint(0, base.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device="cuda")
+    targets = torch.roll(tokens, -1, dims=1)
+    num_chunks = TRAIN_BATCH * TRAIN_SEQ // HEAD_CHUNK_ROWS
+    names = list(params)
+
+    def loss_and_grads(model, seed=None):
+        g = None
+        if seed is not None:
+            g = torch.Generator(device="cuda")
+            g.manual_seed(seed)
+        loss = model.loss_chunked(params, tokens, targets, generator=g,
+                                  num_chunks=num_chunks)
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        return loss.detach(), dict(zip(names, grads))
+
+    def pair(dropout=0.0, control=False):
+        """(loss off, loss on, bitwise, worst relative difference, its
+        tensor) of one loss and backward at remat off and on."""
+        out = {}
+        for on in (False, True):
+            model = GPT(dataclasses.replace(base, remat=on,
+                                            dropout=dropout))
+            if control:
+                model._control_gen = torch.Generator(device="cuda")
+                model._control_gen.manual_seed(SEED + 18)
+            out[on] = loss_and_grads(model, SEED + 18 if dropout else None)
+        (l0, g0), (l1, g1) = out[False], out[True]
+        same, worst, where = remat_difference(
+            {"loss": l1, **g1}, {"loss": l0, **g0})
+        return float(l0), float(l1), same, worst, where
+
+    sound = pair()
+    dropped = pair(REMAT_DROPOUT)
+    sound_gpt_layer = GPT._layer
+    GPT._layer = remat_control_layer
+    try:
+        control = pair(REMAT_DROPOUT, control=True)
+    finally:
+        GPT._layer = sound_gpt_layer
+
+    steps = {}
+    for on in (False, True):
+        model = GPT(dataclasses.replace(base, remat=on))
+        run_params = {n: p.detach().clone().requires_grad_()
+                      for n, p in params.items()}
+        opt = torch.optim.AdamW(run_params.values(), lr=TRAIN_LR,
+                                weight_decay=TRAIN_WD)
+        losses, walls, per_step = [], [], []
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = model.loss_chunked(run_params, tokens, targets,
+                                      num_chunks=num_chunks)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(REMAT_WARMUP + REMAT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, got = counted(step, on and i >= REMAT_WARMUP)
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            per_step.append(got)
+        steps[on] = dict(
+            losses=losses, walls=walls, launches_per_step=per_step,
+            step_p50_ms=statistics.median(walls[REMAT_WARMUP:]) * 1e3,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del opt, run_params
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    want = {fwd.__name__: base.n_layer, bwd.__name__: base.n_layer}
+    for on in (False, True):
+        r = steps[on]
+        print(f"[remat] GPT-2 small B={TRAIN_BATCH} S={TRAIN_SEQ} remat="
+              f"{on}: step walls {[round(t * 1e3, 2) for t in r['walls']]}"
+              f" ms (p50 of the {REMAT_STEPS} timed {r['step_p50_ms']:.2f}"
+              f" ms), peak allocated {r['peak_gib']:.2f} GiB, losses "
+              f"{[round(x, 4) for x in r['losses']]}, launches a step "
+              f"{r['launches_per_step'][-1]}")
+    print(f"[remat] one loss and backward, remat off vs on: losses "
+          f"{sound[0]!r} / {sound[1]!r}, bitwise {sound[2]}, worst "
+          f"relative difference {sound[3]:.3e} ({sound[4]}); with dropout "
+          f"{REMAT_DROPOUT}: losses {dropped[0]!r} / {dropped[1]!r}, "
+          f"bitwise {dropped[2]}, worst {dropped[3]:.3e} ({dropped[4]}); "
+          f"control '{REMAT_CONTROL}': bitwise {control[2]}, worst "
+          f"{control[3]:.3e} ({control[4]})")
+    for label, r in (("remat off vs on", sound),
+                     (f"dropout {REMAT_DROPOUT}", dropped)):
+        check(r[2] or r[3] <= TOL_REMAT,
+              f"remat: {label} differ by {r[3]} in {r[4]} (limit "
+              f"{TOL_REMAT})")
+    check(not control[2] and control[3] > TOL_REMAT,
+          f"control '{REMAT_CONTROL}' passes the remat check")
+    for on in (False, True):
+        r = steps[on]
+        check(all(got[fwd.__name__] == want[fwd.__name__]
+                  and got[bwd.__name__] == want[bwd.__name__]
+                  for got in r["launches_per_step"]),
+              f"remat={on}: flash launches a step "
+              f"{r['launches_per_step']}, want {want}")
+        check(all(math.isfinite(x) for x in r["losses"])
+              and r["losses"][-1] < r["losses"][0],
+              f"remat={on}: losses {r['losses']}")
+    check(steps[True]["peak_gib"] < steps[False]["peak_gib"],
+          f"remat on peaks at {steps[True]['peak_gib']:.2f} GiB, not below "
+          f"remat off's {steps[False]['peak_gib']:.2f}")
+
+    # ---- part 2: Llama at Llama-2-7B's width ------------------------------
+    lc = LlamaConfig.llama2_7b(n_layer=REMAT_LLAMA_LAYERS)
+    check((lc.d_model, lc.n_head, lc.head_dim, lc.d_ff, lc.vocab_size,
+           lc.dtype) == (4096, 32, 128, 11008, 32000, torch.bfloat16),
+          f"not Llama-2-7B's width: {lc}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    lparams = {n: p.requires_grad_() for n, p in Llama(lc).init(gen).items()}
+    ltok = torch.randint(0, lc.vocab_size, (1, REMAT_LLAMA_SEQ),
+                         generator=gen, device="cuda")
+    ltgt = torch.roll(ltok, -1, dims=1)
+    lnames = list(lparams)
+    llama = {}
+    for on in (False, True):
+        model = Llama(dataclasses.replace(lc, remat=on))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            loss = model.loss(lparams, ltok, ltgt)
+            return loss.detach(), torch.autograd.grad(
+                loss, [lparams[n] for n in lnames])
+
+        t0 = time.perf_counter()
+        (loss, grads), got = counted(run, on)
+        llama[on] = dict(loss=loss, grads=dict(zip(lnames, grads)),
+                         launches=got, seconds=time.perf_counter() - t0,
+                         peak_above_gib=(torch.cuda.max_memory_allocated()
+                                         - start) / 2**30)
+    same, worst, where = remat_difference(llama[True]["grads"],
+                                          llama[False]["grads"])
+    l_off, l_on = (float(llama[on]["loss"]) for on in (False, True))
+    loss_bitwise = torch.equal(llama[True]["loss"], llama[False]["loss"])
+    for on in (False, True):
+        r = llama[on]
+        print(f"[remat] Llama-2-7B width, {REMAT_LLAMA_LAYERS} layers, B=1 "
+              f"S={REMAT_LLAMA_SEQ}, remat={on}: loss {float(r['loss'])!r}, "
+              f"{r['seconds'] * 1e3:.1f} ms, peak above the params "
+              f"{r['peak_above_gib']:.2f} GiB, launches {r['launches']}")
+    print(f"[remat] Llama remat off vs on: loss bitwise {loss_bitwise}; "
+          f"gradients bitwise {same}, worst relative difference "
+          f"{worst:.3e} ({where})")
+    check(loss_bitwise, f"Llama loss {l_on!r} at remat on, {l_off!r} off")
+    check(same or worst <= TOL_REMAT,
+          f"Llama gradients differ by {worst} in {where}")
+    want_l = {False: (REMAT_LLAMA_LAYERS, REMAT_LLAMA_LAYERS),
+              True: (2 * REMAT_LLAMA_LAYERS, REMAT_LLAMA_LAYERS)}
+    for on in (False, True):
+        got = llama[on]["launches"]
+        check((got[fwd.__name__], got[bwd.__name__]) == want_l[on],
+              f"Llama remat={on}: flash launches {got}, want "
+              f"{want_l[on]}")
+    check(llama[True]["peak_above_gib"] < llama[False]["peak_above_gib"],
+          "Llama's remat does not lower its peak")
+    del lparams, llama
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[remat] the phase took {phase_s:.1f} s")
+    return dict(
+        gpt=dict(bitwise=sound[2], worst=sound[3], losses=sound[:2],
+                 dropout_bitwise=dropped[2], dropout_worst=dropped[3],
+                 control_bitwise=control[2], control_worst=control[3],
+                 steps={str(on): steps[on] for on in (False, True)}),
+        llama=dict(loss_bitwise=loss_bitwise, losses=[l_off, l_on],
+                   grads_bitwise=same, grads_worst=worst),
+        launches=remat_launches, phase_s=phase_s)
+
+
 def profiled(fn):
     """(wall ms, {kernel name: device ms}, kernel launches) of one call of
     ``fn`` under torch.profiler (the profiler's own host cost is inside
@@ -1988,7 +2322,7 @@ def phase_training(kernel_ms, fused=False):
                                    ln_matmul_fwd, matmul_residual_fwd)
 
     label = "training fused" if fused else "training"
-    c = GPTConfig.small(use_flash=True, fused_entry_exit=fused)
+    c = GPTConfig.small(use_flash=True, fused_entry_exit=fused, remat=False)
     check((c.n_layer, c.d_model, c.n_head, c.head_dim, c.padded_vocab,
            c.dropout) == (12, 768, 12, 64, 50304, 0.0),
           f"not GPT-2 small width: {c}")
@@ -3602,7 +3936,7 @@ def phase_pipeline(wrappers, card, device=None):
     from ray_tpu_torch.train.pipeline_cgraph import channel_bytes_by_edge
 
     dev = torch.device("cuda" if device is None else device)
-    c = GPTConfig.small(use_flash=True)
+    c = GPTConfig.small(use_flash=True, remat=False)
     check((c.n_layer, c.d_model, c.n_head, c.head_dim, c.padded_vocab,
            c.dtype) == (12, 768, 12, 64, 50304, torch.bfloat16),
           f"not GPT-2 small: {c}")
@@ -3956,8 +4290,10 @@ def tp_rank_collectives(w, reps):
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
 
-    return dict(all_reduce_ms=median_ms(lambda: tp.all_reduce_f32(partial)),
-                gather_ms=median_ms(lambda: tp.gather_last(logits)))
+    with torch.no_grad():        # the serving path's all-reduce
+        return dict(
+            all_reduce_ms=median_ms(lambda: tp.all_reduce_f32(partial)),
+            gather_ms=median_ms(lambda: tp.gather_last(logits)))
 
 
 def tp_rank_kv_fault(w, on):
@@ -4236,7 +4572,7 @@ def pp_rank_run(w, mode, keep_params):
         if cuda:
             torch.cuda.synchronize()
 
-    c = GPTConfig.small(use_flash=True)
+    c = GPTConfig.small(use_flash=True, remat=False)
     model = GPT(c)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -4359,7 +4695,7 @@ def phase_pp_spmd(wrappers, card, device=None):
 
     t_phase = time.perf_counter()
     device_type = "cuda" if device is None else str(device)
-    c = GPTConfig.small(use_flash=True)
+    c = GPTConfig.small(use_flash=True, remat=False)
     P_, M = PP_SPMD, PP_SPMD_MICROBATCHES
     # the params and gradients come back through the object store
     ray_tpu_torch.init(num_cpus=4, object_store_memory=8 << 30)
@@ -4554,6 +4890,310 @@ def phase_pp_spmd(wrappers, card, device=None):
                                 for f in wrappers[2:]})
 
 
+def tp_train_rank_run(w, part, mode):
+    """On a rank of phase 19's gang: GPT-2 small (remat on) from the
+    seed-0 init and phase 16's batch. ``part`` "A" runs GPT(tp=2)
+    .loss_chunked over M chunks on the mesh {"tp": TP_TRAIN} (the ranks
+    past it return None); "B" runs loss_pp over M microbatches on
+    {"pp": PP_SPMD, "tp": TP_TRAIN}. Each rank first computes the
+    one-process reference on the full params (loss_chunked, or loss_pp at
+    pp=1), takes its shard of the reference gradient and frees the rest.
+    ``mode`` "sound": TP_TRAIN_WARMUP + TP_TRAIN_STEPS AdamW steps on this
+    rank's shards, the step-0 loss and gradients held to the reference's,
+    the kernel launches, collectives and peak memory of the timed steps,
+    and one more step, under torch.profiler on the mesh's first rank;
+    TP_TRAIN_CONTROL: the step-0 loss and gradients alone, each
+    row-parallel exit's backward summing its cotangent over tp. The
+    ranks off part A's mesh run their first CUDA work instead."""
+    import torch
+
+    from ray_tpu_torch.models import GPT, GPTConfig
+    from ray_tpu_torch.models.gpt import _LMHead
+    from ray_tpu_torch.ops import (flash_attention_bwd, flash_attention_fwd,
+                                   ln_matmul_fwd, matmul_residual_fwd)
+    from ray_tpu_torch.parallel.sharding import MeshOwner, lower
+    from ray_tpu_torch.parallel.sharding.tensor_parallel import (
+        TensorParallel)
+
+    t_start = time.perf_counter()
+    dev = torch.device(w.mesh_owner.mesh.device_type)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # every rank builds every mesh, in one order: their groups form
+    # collectively
+    spec = {"tp": TP_TRAIN} if part == "A" else {"pp": PP_SPMD,
+                                                 "tp": TP_TRAIN}
+    owner = MeshOwner(spec, device_type=dev.type)
+    ref_owner = MeshOwner({"pp": 1, "dp": -1}, device_type=dev.type) \
+        if part == "B" else None
+    coord = owner.coordinate()
+    c = GPTConfig.small(use_flash=True)
+    full = GPT(c)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    full_params = full.init(gen)
+    batch = PP_SPMD_MICROBATCHES * PP_SPMD_MB
+    tokens = torch.randint(0, c.vocab_size, (batch, TRAIN_SEQ),
+                           generator=gen, device=dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    if coord is None:
+        # off part A's mesh: this rank's first CUDA work (its context,
+        # cuBLAS, the kernels' libraries) runs here, beside part A, and
+        # not inside part B's first step
+        with torch.no_grad():
+            full.loss_chunked(full_params, tokens[:1], targets[:1])
+        sync()
+        return None
+    M = PP_SPMD_MICROBATCHES
+    names = list(full_params)
+
+    def loss_of(model, params, mesh):
+        if part == "A":
+            return model.loss_chunked(params, tokens, targets, num_chunks=M)
+        return model.loss_pp(params, tokens, targets, mesh,
+                             num_microbatches=M)
+
+    for p in full_params.values():
+        p.requires_grad_()
+    ref_loss = loss_of(full, full_params, ref_owner)
+    ref_grads = torch.autograd.grad(ref_loss,
+                                    [full_params[n] for n in names])
+    model = full.tensor_parallel(TensorParallel.from_owner(owner, "tp"))
+    ref = [model.shard_param(n, g) for n, g in zip(names, ref_grads)]
+    params = {n: model.shard_param(n, p.detach()).clone().requires_grad_()
+              for n, p in full_params.items()}
+    del full_params, ref_grads
+    out = dict(coord=coord, pid=os.getpid(), device=str(dev),
+               ref_loss=float(ref_loss.detach()))
+    if mode == TP_TRAIN_CONTROL:
+        tp, dtype = model.tp, c.dtype
+
+        def counted_twice(x, wt):
+            part_sum = _LMHead.apply(x.reshape(-1, x.shape[-1]),
+                                     wt.to(dtype).T)
+            return tp.all_reduce_f32(tp.enter(part_sum)).reshape(
+                *x.shape[:-1], -1).to(dtype)
+
+        model._mm_row = counted_twice
+        loss = loss_of(model, params, owner)
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        out.update(loss0=float(loss.detach()),
+                   rel_err=param_rel_errors(names, grads, ref))
+        return out
+
+    opt = torch.optim.AdamW(list(params.values()), lr=TRAIN_LR,
+                            weight_decay=TRAIN_WD)
+    counted = (flash_attention_fwd, flash_attention_bwd, ln_matmul_fwd,
+               matmul_residual_fwd)
+    losses, walls = [], []
+    t_steps = time.perf_counter()
+    for step in range(TP_TRAIN_WARMUP + TP_TRAIN_STEPS):
+        if step == TP_TRAIN_WARMUP:          # the timed steps start here
+            sync()
+            for f in counted:
+                f.launches = 0
+            lower.collective_stats(reset=True)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(model, params, owner)
+        loss.backward()
+        if step == 0:
+            grads = [params[n].grad for n in names]
+            out["rel_err"] = param_rel_errors(names, grads, ref)
+            out["grad_digests"] = _digests(dict(zip(names, grads)))
+            del ref, grads
+        opt.step()
+        losses.append(float(loss.detach()))
+        sync()
+        walls.append(time.perf_counter() - t0)
+    t_read = time.perf_counter()
+    out["launches"] = {f.__name__: f.launches for f in counted}
+    out["collectives"] = lower.collective_stats()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+    out.update(losses=losses, walls=walls, loss0=losses[0],
+               param_digests=_digests(params))
+    t_profile = time.perf_counter()
+    if cuda:
+        # one more step on every rank, under torch.profiler on the first
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss_of(model, params, owner).backward()
+            opt.step()
+
+        if any(coord.values()):
+            step()
+            sync()
+        else:
+            out["profiled"] = profiled(step)[:2]
+    out["seconds"] = {k: round(b - a, 1) for k, a, b in (
+        ("set-up and reference", t_start, t_steps),
+        ("steps", t_steps, t_read),
+        ("profile", t_profile, time.perf_counter()))}
+    del params, opt, loss
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_train(wrappers, card, device=None):
+    """Phase 19: a tensor-parallel GPT-2 small trained on the card, by a
+    gang of TP_TRAIN_RANKS gloo rank processes (module docstring): part
+    A, GPT(tp=2).loss_chunked on two of them, its planted control, and
+    part B, loss_pp at pp=2 x tp=2 on all four, each rank held to the
+    one-process reference it computes itself. The driver's launch counts
+    of ``wrappers`` are zeroed just before each sound run and read just
+    after (it launches nothing); each rank counts its own timed steps.
+    ``device`` (None: the card) is for a rehearsal on the CPU, where the
+    checks of the card fail by design."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models import GPTConfig
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.parallel.mesh_group import MeshGroup
+
+    t_phase = time.perf_counter()
+    device_type = "cuda" if device is None else str(device)
+    c = GPTConfig.small(use_flash=True)
+    ray_tpu_torch.init(num_cpus=TP_TRAIN_RANKS)
+    gang = None
+    try:
+        t0 = time.perf_counter()
+        gang = MeshGroup(TP_TRAIN_RANKS, spec=MeshSpec(dp=-1),
+                         device_type=device_type)
+        up_s = time.perf_counter() - t0
+        run_s, driver = {}, {}
+
+        def timed_run(label, part, mode):
+            for f in wrappers:
+                f.launches = 0
+            t1 = time.perf_counter()
+            res = [r for r in gang.run(tp_train_rank_run, part, mode)
+                   if r is not None]
+            run_s[label] = round(time.perf_counter() - t1, 1)
+            driver[label] = {f.__name__: f.launches for f in wrappers}
+            return res
+
+        parts = {"tp_train": timed_run("tp_train", "A", "sound"),
+                 "control": timed_run("control", "A", TP_TRAIN_CONTROL),
+                 "pp_tp": timed_run("pp_tp", "B", "sound")}
+    finally:
+        if gang is not None:
+            gang.shutdown()
+        ray_tpu_torch.shutdown()
+
+    ticks = PP_SPMD_MICROBATCHES + PP_SPMD - 1
+    want = {"tp_train": (2, c.n_layer), "pp_tp": (4, ticks * c.n_layer
+                                                  // PP_SPMD)}
+    out = {}
+    for label, desc in (("tp_train", f"GPT(tp={TP_TRAIN}).loss_chunked"),
+                        ("pp_tp", f"loss_pp at pp={PP_SPMD} x "
+                                  f"tp={TP_TRAIN}")):
+        runs = parts[label]
+        n_ranks, per_layer_step = want[label]
+        check(len(runs) == n_ranks and all(r["device"].startswith("cuda")
+                                           for r in runs),
+              f"{label}: ranks {[(r['coord'], r['device']) for r in runs]}")
+        worst = [worst_error(r["rel_err"]) for r in runs]
+        loss_err = max(abs(r["loss0"] - r["ref_loss"]) for r in runs)
+        # ranks of one tp coordinate (a pp group) hold the same shards;
+        # the replicated params are the same on every rank
+        groups = {}
+        for r in runs:
+            groups.setdefault(r["coord"]["tp"], []).append(r)
+        groups_equal = all(
+            r["losses"] == g[0]["losses"]
+            and r["grad_digests"] == g[0]["grad_digests"]
+            and r["param_digests"] == g[0]["param_digests"]
+            for g in groups.values() for r in g[1:])
+        replicated_equal = all(
+            r["grad_digests"][n] == runs[0]["grad_digests"][n]
+            and r["param_digests"][n] == runs[0]["param_digests"][n]
+            for r in runs[1:] for n in r["param_digests"]
+            if n not in TP_SPLIT_PARAMS)
+        per_step = [{n: r["launches"][f.__name__] / TP_TRAIN_STEPS
+                     for n, f in zip(("flash_fwd", "flash_bwd"), wrappers)}
+                    for r in runs]
+        fused = sum(r["launches"][f.__name__] for r in runs
+                    for f in wrappers[2:])
+        r0 = runs[0]
+        p50 = statistics.median(r0["walls"][TP_TRAIN_WARMUP:])
+        coll = {k: round(v["seconds"] * 1e3 / TP_TRAIN_STEPS, 3)
+                for k, v in sorted(r0["collectives"].items())}
+        coll_bytes = {k: v["bytes"] // TP_TRAIN_STEPS
+                      for k, v in sorted(r0["collectives"].items())}
+        peaks = [None if r["peak_bytes"] is None
+                 else round(r["peak_bytes"] / 2**30, 2) for r in runs]
+        print(f"[tp train] {desc}, {n_ranks} ranks (pids "
+              f"{[r['pid'] for r in runs]}): step-0 loss {r0['loss0']!r} "
+              f"vs the one-process reference {r0['ref_loss']!r} (worst "
+              f"rank {loss_err:.3e}, limit {TOL_TP_LOSS}); worst "
+              f"||g - g_ref|| / ||g_ref|| per rank "
+              f"{[(n, float(f'{e:.4g}')) for n, e in worst]} (limit "
+              f"{TOL_TP_GRAD}); rank 0 per parameter "
+              + json.dumps({n: float(f"{e:.4g}")
+                            for n, e in r0["rel_err"].items()}))
+        print(f"[tp train] {desc}: losses {r0['losses']}; pp groups "
+              f"bitwise equal {groups_equal}; replicated params bitwise "
+              f"equal on every rank {replicated_equal}; flash launches a "
+              f"step per rank {per_step}; driver {driver[label]}")
+        print(f"[tp train] {desc} on {card}: step wall "
+              f"{[round(t * 1e3, 2) for t in r0['walls']]} ms (p50 of the "
+              f"{TP_TRAIN_STEPS} timed {p50 * 1e3:.2f} ms); collectives ms "
+              f"a step on rank 0 {coll}, bytes a step {coll_bytes}; peak "
+              f"allocated per rank {peaks} GiB; in the ranks "
+              f"{[r['seconds'] for r in runs]} s")
+        check(loss_err <= TOL_TP_LOSS,
+              f"{label}: step-0 loss off the reference's by {loss_err}")
+        check(all(e <= TOL_TP_GRAD for _, e in worst),
+              f"{label}: gradients off the reference's: {worst}")
+        check(groups_equal, f"{label}: a pp group's ranks differ")
+        check(replicated_equal,
+              f"{label}: the replicated params differ between ranks")
+        check(all(math.isfinite(x) for x in r0["losses"])
+              and r0["losses"][-1] < r0["losses"][0],
+              f"{label}: losses {r0['losses']}")
+        check(all(d == {"flash_fwd": per_layer_step,
+                        "flash_bwd": per_layer_step} for d in per_step),
+              f"{label}: flash launches a step per rank {per_step}, want "
+              f"{per_layer_step} each")
+        check(not fused, f"{label}: a rank launched a fused kernel")
+        check(not any(driver[label].values()),
+              f"the driver launched {driver[label]} on the {label} path")
+        profiles = {f"rank {i}": kernel_breakdown(
+            *r["profiled"], f"tp train {label} rank {i}")
+            for i, r in enumerate(runs) if "profiled" in r}
+        out[label] = dict(
+            loss0=r0["loss0"], ref_loss=r0["ref_loss"], loss_err=loss_err,
+            worst_grad_err=worst, losses=r0["losses"], step_wall_s=r0[
+                "walls"], step_p50_s=p50, collectives_ms=coll,
+            collective_bytes=coll_bytes, peak_gib=peaks,
+            launches_per_step=per_step, profiles=profiles,
+            launches={n: sum(r["launches"][f.__name__] for r in runs)
+                      for n, f in zip(("flash_fwd", "flash_bwd"),
+                                      wrappers)})
+    ctl = parts["control"]
+    ctl_worst = max((worst_error(r["rel_err"]) for r in ctl),
+                    key=lambda x: x[1])
+    print(f"[tp train] control '{TP_TRAIN_CONTROL}': worst ||g - g_ref|| "
+          f"/ ||g_ref|| {ctl_worst[1]:.4g} ({ctl_worst[0]}), step-0 loss "
+          f"{ctl[0]['loss0']!r}")
+    check(ctl_worst[1] > TOL_TP_GRAD,
+          f"control '{TP_TRAIN_CONTROL}' passes the gradient check")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[tp train] the phase took {phase_s:.1f} s (gang {up_s:.1f} s, "
+          f"runs {run_s} s)")
+    out.update(control_worst=ctl_worst, up_s=up_s, run_s=run_s,
+               phase_s=phase_s)
+    return out
+
+
 def _tree_digest(tree):
     """One sha256 over a dict of tensors' per-tensor digests."""
     import hashlib
@@ -4617,7 +5257,7 @@ def ddp_gpt_loop(config):
         if cuda:
             torch.cuda.synchronize()
 
-    c = GPTConfig.small(use_flash=True)
+    c = GPTConfig.small(use_flash=True, remat=False)
     model = GPT(c)
     tokens = torch.stack(train.get_dataset_shard("train")).to(dev)
     targets = torch.roll(tokens, -1, dims=1)
@@ -4992,7 +5632,7 @@ def phase_train(wrappers, card, device=None):
     ray_tpu_torch.init(num_cpus=4, object_store_memory=8 << 30)
     try:
         # ---- part A: GPT-2 small DDP by JaxTrainer ----------------------
-        c = GPTConfig.small(use_flash=True)
+        c = GPTConfig.small(use_flash=True, remat=False)
         model = GPT(c)
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED)
@@ -5328,6 +5968,9 @@ def main() -> int:
              "mm_res": fused_ms["proj"] + fused_ms["MLP out"]}, fused=True)
         gc.collect()
         torch.cuda.empty_cache()
+        remat_phase = phase_remat(wrappers)
+        gc.collect()
+        torch.cuda.empty_cache()
         moe_fwd = next(r for r in fwd_rows if r["label"] == MOE_CASE)
         moe_bwd = next(r for r in bwd_rows if r["label"] == MOE_CASE)
         moe_training = phase_moe_training(
@@ -5355,6 +5998,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         pp_spmd = phase_pp_spmd(wrappers, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp_train = phase_tp_train(wrappers, card)
         gc.collect()
         torch.cuda.empty_cache()
         train_phase = phase_train(wrappers, card)
@@ -5395,6 +6041,11 @@ def main() -> int:
                         pipeline_fsdp=fsdp_launches(flash_attention_fwd),
                         tp=tp_serving["launches"],
                         pp_spmd=pp_spmd["launches"]["flash_fwd"],
+                        remat=remat_phase["launches"][
+                            flash_attention_fwd.__name__],
+                        tp_train=tp_train["tp_train"]["launches"][
+                            "flash_fwd"],
+                        pp_tp=tp_train["pp_tp"]["launches"]["flash_fwd"],
                         **{path: counts[flash_attention_fwd.__name__]
                            for path, counts in
                            train_phase["launches"].items()})
@@ -5405,6 +6056,11 @@ def main() -> int:
                         pipeline=pipeline["launches"]["flash_bwd"],
                         pipeline_fsdp=fsdp_launches(flash_attention_bwd),
                         pp_spmd=pp_spmd["launches"]["flash_bwd"],
+                        remat=remat_phase["launches"][
+                            flash_attention_bwd.__name__],
+                        tp_train=tp_train["tp_train"]["launches"][
+                            "flash_bwd"],
+                        pp_tp=tp_train["pp_tp"]["launches"]["flash_bwd"],
                         **{path: counts[flash_attention_bwd.__name__]
                            for path, counts in
                            train_phase["launches"].items()})
@@ -5494,7 +6150,8 @@ def main() -> int:
                "moe_training": moe_training, "vit": vit, "resnet": resnet,
                "head_dims": head_dims, "gpt_serving": gpt_serving,
                "disagg": disagg, "pipeline": pipeline, "pp_spmd": pp_spmd,
-               "train": train_phase,
+               "train": train_phase, "remat": remat_phase,
+               "tp_train": tp_train,
                "fused_backward_products": fused_bwd, "lm_head": lm_head}
     print(f"[summary] {json.dumps(summary)}")
     print(card)

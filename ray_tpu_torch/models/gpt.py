@@ -22,25 +22,42 @@ chunk functions for the actor-hosted pipeline engine
 
 ``GPT(config, tp=TensorParallel(...))`` (or ``tensor_parallel(tp)``) is
 one rank of the tensor-parallel split (parallel/sharding/
-tensor_parallel.py), which ``apply`` and the paged programs run: this
-rank's heads of the fused ``w_qkv`` (taken out of each of q, k and v, so
-not the reference spec's contiguous column chunk) and FFN columns, one f32
-all-reduce after ``w_proj`` and after ``w_out`` (their biases added once,
-after it), the vocabulary-split embedding and tied head with the logits
-gathered (on the host, where gloo's all-gather leaves them: the paged
+tensor_parallel.py): this rank's heads of the fused ``w_qkv`` (taken out
+of each of q, k and v, so not the reference spec's contiguous column
+chunk) and FFN columns, one f32 all-reduce after ``w_proj`` and after
+``w_out`` (their biases added once, after it), and the vocabulary-split
+embedding and tied head. ``apply`` and the paged programs gather the
+logits (on the host, where gloo's all-gather leaves them: the paged
 programs return them there, ``apply`` moves them to the device).
-``fused_entry_exit`` under tp raises (ROADMAP A4.5): ``matmul_residual``
-would add the residual into every rank's partial sum and round it to
-bf16 before the f32 all-reduce.
+``loss``, ``loss_chunked`` and ``loss_pp`` train the split: the inputs
+of the QKV and FC products and of the head sum their cotangents over the
+group, and the cross entropy runs on each rank's vocabulary block of the
+logits, whose row max, sum of exponentials and gold logit are
+all-reduced, so no rank gathers a [T, V] row. Each rank's gradient of a
+split parameter is its shard (``shard_param``) of the full gradient, and
+of a replicated one the full gradient. ``fused_entry_exit`` under tp
+raises (ROADMAP A4.5): ``matmul_residual`` would add the residual into
+every rank's partial sum and round it to bf16 before the f32 all-reduce.
 
 ``GPT.loss_pp`` runs the layer stack as the in-program pipeline
 (``parallel.pipeline.pipeline_spmd``) over a mesh's pp axis of gang
-ranks, the embedding and the head replicated on every rank.
+ranks, the embedding and the head replicated on every rank; on a tp
+model each stage runs its layers' tp split over the mesh's tp axis.
 
-Not here until a slice reads them: the XLA compile knobs ``remat`` (also
-under ``loss_pp``, ROADMAP A4.7) and ``scan_layers``, ``flash_block_q/k``
-(the CUDA kernels choose their own tiles), ``seq_axis`` (ring attention)
-and ``loss_pp`` on a tensor-parallel model (ROADMAP A4.6).
+``remat`` (on by default, as in the JAX model) runs each block under
+``ops.remat`` with the reference's ``_remat_policy``: the four
+projections' outputs and flash's out and lse are saved, and the
+elementwise chain (layernorms, bias adds, gelu, residual adds, dropout;
+with ``use_flash=False`` also ``mha_reference``'s batched products) runs
+again in the backward. Under tp the row-parallel all-reduces' outputs are
+saved too, so a recompute runs no collective. Dropout draws one seed for
+the embedding and one per layer from the caller's generator, and each
+block draws its masks from a generator seeded anew, so the recompute
+draws the same masks and remat never changes a result.
+
+Not here until a slice reads them: the XLA compile knobs ``scan_layers``
+and ``flash_block_q/k`` (the CUDA kernels choose their own tiles), and
+``seq_axis`` (ring attention).
 """
 from __future__ import annotations
 
@@ -50,14 +67,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..ops import (cross_entropy_loss, flash_attention, gelu, layernorm,
                    ln_matmul, matmul_residual, mha_reference,
                    paged_attention_decode, paged_attention_prefill,
                    paged_write_prefill, paged_write_step)
-from ..parallel.sharding.tensor_parallel import (TensorParallel,
-                                                 head_layout, matmul_f32)
+from ..ops.remat import COLLECTIVES, FLASH, MATMULS, remat
+from ..parallel.sharding.tensor_parallel import TensorParallel, head_layout
 
 Params = Dict[str, torch.Tensor]
 
@@ -84,7 +100,8 @@ def _seeded(seed: int, device: torch.device) -> torch.Generator:
 
 class _LMHead(torch.autograd.Function):
     """x [T, D] @ w [V, D].T -> f32 logits [T, V], as the JAX head
-    computes them (``preferred_element_type=f32``). The backward is JAX's
+    computes them (``preferred_element_type=f32``); also the f32 partial
+    product of a row-parallel weight under tp. The backward is JAX's
     transpose: the f32 cotangent g goes into both products, accumulated in
     f32 and rounded to x's dtype once. In a 16-bit dtype g is split into
     hi = g in that dtype and lo = (g - hi) in that dtype: 16-bit products
@@ -131,6 +148,9 @@ class GPTConfig:
     # LN + matmul fused at the block entry, matmul + residual at the exit
     # (the ops/fused.py kernels); off by default, as in the JAX model
     fused_entry_exit: bool = False
+    # each block recomputed in the backward but for the saved set of
+    # GPT.REMAT_SAVED; on by default, as in the JAX model
+    remat: bool = True
 
     @property
     def padded_vocab(self) -> int:
@@ -170,6 +190,9 @@ class GPT:
                     "ln2_g", "ln2_b", "w_fc", "b_fc", "w_out", "b_out")
     _NORMAL = ("wte", "wpe", "w_qkv", "w_proj", "w_fc", "w_out")
     _RESIDUAL = ("w_proj", "w_out")    # GPT-2's 1/sqrt(2L) init scale
+    # the reference's _remat_policy: products without batch dims and
+    # flash's out and lse saved (and, under tp, the all-reduced outputs)
+    REMAT_SAVED = MATMULS + FLASH + COLLECTIVES
 
     def __init__(self, config: GPTConfig,
                  tp: Optional[TensorParallel] = None):
@@ -306,12 +329,19 @@ class GPT:
 
     def _mm_row(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """``_mm`` of a row-parallel weight (w_proj, w_out): under tp the
-        partial products are summed over the group in f32 and rounded
-        once."""
+        f32 partial products (``_LMHead``, differentiable on the card) are
+        summed over the group and rounded once."""
         if self.tp is None:
             return self._mm(x, w)
         dtype = self.config.dtype
-        return self.tp.all_reduce_f32(matmul_f32(x, w.to(dtype))).to(dtype)
+        part = _LMHead.apply(x.reshape(-1, x.shape[-1]), w.to(dtype).T)
+        return self.tp.all_reduce_f32(part).reshape(
+            *x.shape[:-1], -1).to(dtype)
+
+    def _enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of a column-parallel product: under tp its cotangent
+        is summed over the group in the backward."""
+        return x if self.tp is None else self.tp.enter(x)
 
     def _dropout(self, x: torch.Tensor,
                  generator: torch.Generator) -> torch.Tensor:
@@ -336,7 +366,7 @@ class GPT:
                             lp["b_qkv"].to(c.dtype)).reshape(B, S,
                                                              3 * H * hd)
         else:
-            h = layernorm(x, lp["ln1_g"], lp["ln1_b"])
+            h = self._enter(layernorm(x, lp["ln1_g"], lp["ln1_b"]))
             qkv = self._mm(h, lp["w_qkv"]) + lp["b_qkv"].to(c.dtype)
         q, k, v = (t.reshape(B, S, H, hd) for t in qkv.split(H * hd, dim=-1))
         if c.use_flash:
@@ -362,7 +392,7 @@ class GPT:
         if drop:
             proj = self._dropout(proj, generator)
         x = x + proj
-        h = layernorm(x, lp["ln2_g"], lp["ln2_b"])
+        h = self._enter(layernorm(x, lp["ln2_g"], lp["ln2_b"]))
         h = gelu(self._mm(h, lp["w_fc"]) + lp["b_fc"].to(c.dtype))
         out = self._mm_row(h, lp["w_out"]) + lp["b_out"].to(c.dtype)
         if drop:
@@ -406,25 +436,50 @@ class GPT:
         both the plain and the interleaved engine."""
         return gpt_pipeline_stages(self, params, num_chunks)
 
+    def _dropout_seeds(self, generator: Optional[torch.Generator]):
+        """With dropout > 0 and a generator: one seed for the embedding
+        and one per layer, drawn from ``generator``; else None."""
+        c = self.config
+        if c.dropout <= 0.0 or generator is None:
+            return None
+        return torch.randint(0, 2 ** 62, (c.n_layer + 1,),
+                             generator=generator,
+                             device=generator.device).cpu()
+
+    def _layer(self, x: torch.Tensor, lp: Params,
+               seed: Optional[int]) -> torch.Tensor:
+        """One block, its dropout masks drawn from a generator seeded with
+        ``seed`` (None: no dropout), under ``remat`` when the config asks
+        for it: the recompute seeds its generator anew, so it draws the
+        forward's masks."""
+        def block(x, lp):
+            gen = None if seed is None else _seeded(seed, x.device)
+            return self._block(x, lp, gen)
+
+        if self.config.remat:
+            return remat(block, x, lp, saved=self.REMAT_SAVED)
+        return block(x, lp)
+
     def _backbone(self, params: Params, tokens: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   positions: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
         """Transformer stack up to the final layernorm ([B, S, D], no
         head). With dropout > 0 and a generator, GPT-2's dropout applies
-        to the embeddings and to each residual branch, drawn in order from
-        ``generator``."""
+        to the embeddings and to each residual branch, with the seeds of
+        ``_dropout_seeds``."""
         c = self.config
+        seeds = self._dropout_seeds(generator)
         x = self._embed(params["wte"], params["wpe"], tokens, positions)
-        if c.dropout > 0.0 and generator is not None:
-            x = self._dropout(x, generator)
+        if seeds is not None:
+            x = self._dropout(x, _seeded(int(seeds[0]), x.device))
         # one unbind per stacked parameter: its backward stacks the
         # per-layer gradients once, where indexing would add L full-size
         # gradients
         layers = {n: params[n].unbind(0) for n in self.LAYER_PARAMS}
         for li in range(c.n_layer):
-            x = self._block(x, {n: t[li] for n, t in layers.items()},
-                            generator)
+            x = self._layer(x, {n: t[li] for n, t in layers.items()},
+                            None if seeds is None else int(seeds[li + 1]))
         return layernorm(x, params["lnf_g"], params["lnf_b"])
 
     def apply(self, params: Params, tokens: torch.Tensor,
@@ -439,6 +494,11 @@ class GPT:
     def loss(self, params: Params, tokens: torch.Tensor,
              targets: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.tp is not None:
+            # each rank's vocabulary block of the logits, never gathered
+            return self._chunked_head_nll(
+                params["wte"], self._backbone(params, tokens, generator),
+                targets, 1)
         logits = self.apply(params, tokens, generator=generator)
         return cross_entropy_loss(logits, targets)
 
@@ -466,30 +526,28 @@ class GPT:
         runs the reverse pipeline and leaves the whole gradient of every
         parameter on every rank.
 
-        With dropout > 0 and a generator, one seed for the embedding and
-        one per layer are drawn from ``generator``; each layer draws its
-        masks from a generator seeded anew at each call, so every
-        microbatch reuses its layer's masks (as the reference's stacked
-        per-layer dropout keys do) and the masks do not depend on P."""
+        With dropout > 0 and a generator, the seeds are
+        ``_dropout_seeds``; each layer draws its masks from a generator
+        seeded anew at each call, so every microbatch reuses its layer's
+        masks (as the reference's stacked per-layer dropout keys do) and
+        the masks do not depend on P.
+
+        On a tp model (``params`` this rank's shards) the mesh also has
+        the model's tp axis: each stage runs its layers' tp split, and
+        the embedding and the head are the tp model's on every pp rank,
+        so a rank ends with its tp shard's whole gradient."""
         from ..parallel.pipeline import axis_size, pipeline_spmd, stack_stages
 
-        if self.tp is not None:
-            raise NotImplementedError(
-                "GPT.loss_pp on a tensor-parallel GPT is not ported "
-                "(ROADMAP A4.6)")
-        c = self.config
         P_ = axis_size(mesh, pp_axis)
         M = num_microbatches or max(P_, 2)
         B, S = tokens.shape
         if B % M:
             raise ValueError(f"batch {B} not divisible into {M} microbatches")
+        seeds = self._dropout_seeds(generator)
         x = self._embed(params["wte"], params["wpe"], tokens)
         D = x.shape[-1]
         layer_params = {n: params[n] for n in self.LAYER_PARAMS}
-        if c.dropout > 0.0 and generator is not None:
-            seeds = torch.randint(0, 2 ** 62, (c.n_layer + 1,),
-                                  generator=generator,
-                                  device=generator.device).cpu()
+        if seeds is not None:
             x = self._dropout(x, _seeded(int(seeds[0]), x.device))
             # the per-layer seeds stage-split with the layer params
             layer_params["_dropout_seed"] = seeds[1:]
@@ -500,10 +558,8 @@ class GPT:
             seeds = lp.get("_dropout_seed")
             layers = {n: lp[n].unbind(0) for n in self.LAYER_PARAMS}
             for li in range(len(layers["w_qkv"])):
-                gen = None if seeds is None else \
-                    _seeded(int(seeds[li]), xs.device)
-                xs = self._block(xs, {n: t[li] for n, t in layers.items()},
-                                 gen)
+                xs = self._layer(xs, {n: t[li] for n, t in layers.items()},
+                                 None if seeds is None else int(seeds[li]))
             return xs
 
         y_mb = pipeline_spmd(stage_fn, stages, x_mb, mesh, pp_axis=pp_axis)
@@ -520,16 +576,24 @@ class GPT:
             raise ValueError(f"{T} tokens do not split into {num_chunks} "
                              "chunks")
         head = wte.to(self.config.dtype)
-        xt = x.reshape(T, -1).chunk(num_chunks)
+        xt = self._enter(x.reshape(T, -1)).chunk(num_chunks)
         tg = targets.reshape(T).chunk(num_chunks)
+        # under tp a chunk's all-reduces are kept, not run again in the
+        # backward
+        saved = () if self.tp is None else COLLECTIVES
         total = x.new_zeros((), dtype=torch.float32)
         for xc, tc in zip(xt, tg):
-            total = total + checkpoint(self._chunk_nll, head, xc, tc,
-                                       use_reentrant=False)
+            total = total + remat(self._head_nll, head, xc, tc, saved=saved)
         return total / T
 
-    def _chunk_nll(self, head: torch.Tensor, xc: torch.Tensor,
-                   tc: torch.Tensor) -> torch.Tensor:
+    def _head_nll(self, head: torch.Tensor, xc: torch.Tensor,
+                  tc: torch.Tensor) -> torch.Tensor:
+        """The summed cross entropy of the tied head's f32 logits of rows
+        ``xc`` [T, D] against ``tc`` [T]; under tp on each rank's
+        vocabulary block (``TensorParallel.nll_sum``)."""
+        if self.tp is not None:
+            return self.tp.nll_sum(_LMHead.apply(xc, head), tc,
+                                   self.config.padded_vocab)
         logits = self._lm_head(head, xc)
         lse = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, tc[:, None])[:, 0]

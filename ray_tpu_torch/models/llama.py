@@ -20,6 +20,13 @@ query/KV heads and FFN columns of this rank, one f32 all-reduce after
 logits gathered over the group, on the host (where gloo's all-gather
 leaves them: the paged programs return them there, ``apply`` and
 ``decode_step`` move them to the device).
+
+``remat`` (on by default, as in the JAX model) recomputes each block of
+``apply`` (and so ``loss``) in the backward, the reference's bare
+``jax.checkpoint``: nothing is saved but the block's input, so the
+backward launches the flash forward kernel again. Under tp the
+all-reduces' outputs are kept (``ops.remat.COLLECTIVES``): a recompute
+runs no collective.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from ..ops import (apply_rope, cross_entropy_loss, flash_attention,
                    mha_reference, paged_attention_decode,
                    paged_attention_prefill, paged_write_prefill,
                    paged_write_step, rmsnorm, rope_cache)
+from ..ops.remat import COLLECTIVES, remat
 from ..parallel.sharding.tensor_parallel import (TensorParallel,
                                                  head_layout, matmul_f32)
 
@@ -58,6 +66,9 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     use_flash: bool = True
+    # each block of apply recomputed in the backward; on by default, as
+    # in the JAX model
+    remat: bool = True
 
     @property
     def padded_vocab(self) -> int:
@@ -297,7 +308,12 @@ class Llama:
         cos, sin = rope_cache(c.max_seq, c.head_dim, c.rope_base,
                               device=x.device)
         for li in range(c.n_layer):
-            x = self._block(x, self._layer(params, li), cos, sin, positions)
+            lp = self._layer(params, li)
+            if c.remat:
+                x = remat(self._block, x, lp, cos, sin, positions,
+                          saved=COLLECTIVES)
+            else:
+                x = self._block(x, lp, cos, sin, positions)
         return self._head(x, params).to(x.device)
 
     def loss(self, params: Params, tokens: torch.Tensor,

@@ -15,7 +15,12 @@ kernel against.
 ``torch.autograd.Function`` (the counterpart of the JAX package's
 ``custom_vjp``) whose forward saves (q, k, v, out, lse) and whose
 backward runs ``flash_attention_bwd`` on them, never the forward again.
-The two raw functions return tensors without a gradient.
+The two raw functions return tensors without a gradient. The forward
+goes through the dispatcher op ``ray_tpu_torch::flash_fwd``, so a
+selective checkpoint (``ops.remat``) can keep out and lse, as the JAX
+package's remat policy saves ``flash_out`` and ``flash_lse``, and the
+backward of a rematerialised block does not launch the forward kernel
+again.
 
 The kernels are instantiated for head dims 32, 64 and 128. A CUDA call
 with another head dim below 128 zero-pads q, k, v (and ``do``) to the
@@ -324,13 +329,29 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_bwd.launches = 0   # kernel launches since last reset
 
 
+# the forward as the dispatcher op ray_tpu_torch::flash_fwd (through
+# torch.library.Library: the first call of a torch.library.custom_op
+# imports torch._dynamo, seconds in every process)
+_LIB = torch.library.Library("ray_tpu_torch", "FRAGMENT")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "float sm_scale) -> (Tensor, Tensor)")
+
+
+def _flash_fwd_op(q, k, v, causal: bool, sm_scale: float):
+    return flash_attention_fwd(q, k, v, causal, sm_scale)
+
+
+_LIB.impl("flash_fwd", _flash_fwd_op, "CompositeExplicitAutograd")
+
+
 class _Flash(torch.autograd.Function):
     """Counterpart of the JAX package's ``_flash`` custom_vjp
     (``_flash_vjp_fwd`` / ``_flash_vjp_bwd``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
-        out, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
+        out, lse = torch.ops.ray_tpu_torch.flash_fwd(q, k, v, causal,
+                                                    sm_scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return out

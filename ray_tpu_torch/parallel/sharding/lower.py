@@ -24,7 +24,12 @@
   the body has returned, as ``loss.backward()`` runs it. Every rank must
   run the same autograd graph, so that the ranks' backwards reach the
   collectives in the same order; :func:`collective_stats` keeps their
-  seconds and bytes.
+  seconds and bytes. :func:`group_all_reduce` and :func:`group_pvary` are
+  the same pair over a process group that the caller holds (the
+  tensor-parallel split's). The all-reduce is the dispatcher op
+  ``ray_tpu_torch::all_reduce``, so a selective checkpoint
+  (``ops.remat``) keeps its output and never runs it again in a
+  recompute.
 - :func:`sharded_init` — each rank materializes its shards from a seeded
   full init, one tensor at a time, so no rank holds the whole tree.
 
@@ -214,12 +219,33 @@ def _grad_needed(x) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
 
-def _all_reduce(x, group):
+def _all_reduce(x, group, op: str = "sum"):
     import torch.distributed as dist
 
     out = _host(x).clone()
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
+                             "max": dist.ReduceOp.MAX}[op], group=group)
     return out.to(x.device)
+
+
+# The collective as a dispatcher op, so that a selective checkpoint can
+# keep its output (ops/remat.py). Defined through torch.library.Library:
+# the first call of a torch.library.custom_op imports torch._dynamo,
+# seconds in every process. Its arguments are tensors and scalars, so a
+# process group is named by an id; the groups are held here, so no id is
+# reused.
+_GROUPS: Dict[int, object] = {}
+_LIB = torch.library.Library("ray_tpu_torch", "FRAGMENT")
+_LIB.define("all_reduce(Tensor x, int group, str name, str op) -> Tensor")
+
+
+def _all_reduce_op(x, group: int, name: str, op: str):
+    """The ``op`` ("sum" or "max") of ``x`` over the process group of id
+    ``group``, recorded under ``name`` (:func:`collective_stats`)."""
+    return _timed(name, x, lambda: _all_reduce(x, _GROUPS[group], op))
+
+
+_LIB.impl("all_reduce", _all_reduce_op, "CompositeExplicitAutograd")
 
 
 class _PSum(torch.autograd.Function):
@@ -228,22 +254,29 @@ class _PSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group, name):
-        return _timed(name, x, lambda: _all_reduce(x, group))
+        return torch.ops.ray_tpu_torch.all_reduce(x, group, name, "sum")
 
     @staticmethod
     def backward(ctx, g):
         return g, None, None
 
 
+def group_all_reduce(x, group, *, name: str = "psum", op: str = "sum"):
+    """The sum (or, with ``op="max"``, the max, which has no gradient) of
+    ``x`` over the ranks of process group ``group``, through the host.
+    Differentiable: the sum is replicated over the group, so the
+    cotangent passes through unchanged."""
+    _GROUPS[id(group)] = group
+    if op == "sum" and _grad_needed(x):
+        return _PSum.apply(x, id(group), name)
+    return torch.ops.ray_tpu_torch.all_reduce(x, id(group), name, op)
+
+
 def psum(x, axis_name: str, *, name: Optional[str] = None):
     """Sum of ``x`` over the ranks of ``axis_name`` (jax.lax.psum).
     Differentiable: the result is replicated over the axis, so the
     cotangent passes through unchanged."""
-    group = _group(axis_name)
-    name = name or "psum"
-    if _grad_needed(x):
-        return _PSum.apply(x, group, name)
-    return _timed(name, x, lambda: _all_reduce(x, group))
+    return group_all_reduce(x, _group(axis_name), name=name or "psum")
 
 
 def _perm_peers(perm: Sequence[Tuple[int, int]], me: int, n: int):
@@ -355,8 +388,11 @@ def pvary(x, axis_name: str, *, name: Optional[str] = None):
     ranks of the axis (JAX's ``pvary``, the transpose of a replicated
     input entering the manual region). The summed leaves share one
     all-reduce per dtype."""
-    group = _group(axis_name)
+    return group_pvary(x, _group(axis_name), name=name or "pvary")
 
+
+def group_pvary(x, group, *, name: str = "pvary"):
+    """:func:`pvary` over the ranks of process group ``group``."""
     def summed(t):
         return isinstance(t, torch.Tensor) and t.is_floating_point() \
             and _grad_needed(t)
@@ -366,7 +402,7 @@ def pvary(x, axis_name: str, *, name: Optional[str] = None):
     picked = [t for t in leaves if summed(t)]
     if not picked:
         return x
-    marked = iter(_PVary.apply(group, name or "pvary", *picked))
+    marked = iter(_PVary.apply(group, name, *picked))
     return _tree_map(lambda t: next(marked) if summed(t) else t, x)
 
 

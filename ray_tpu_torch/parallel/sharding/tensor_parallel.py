@@ -15,7 +15,21 @@ head methods:
   the compute dtype (the unsplit product rounds its f32 accumulation
   once too).
 - The embedding and the LM head are split by vocabulary rows: a masked
-  lookup plus an all-reduce, and each rank's logits slice gathered.
+  lookup plus an all-reduce, and each rank's logits slice gathered. In
+  training the logits stay split: the cross entropy all-reduces each
+  row's max and sum of exponentials and takes the gold logit from the
+  rank that holds it (``nll_sum``).
+
+With grad enabled the split trains, as Megatron's pair of collectives
+(``parallel.sharding.lower``'s differentiable ``group_all_reduce`` and
+``group_pvary``, JAX's transposes): a row-parallel sum (and the
+embedding's) is the identity in the backward, and the input of a
+column-parallel product (``enter``) sums its cotangent over the group.
+So each rank's gradient of a split parameter is the full gradient's
+block, and of a replicated one the full gradient. The all-reduce is a
+dispatcher op that a selective checkpoint saves, so a recompute never
+runs a collective again. Under ``no_grad`` (serving) the sums are
+in-place all-reduces, as cheap as before.
 
 Heads are assigned in blocks of ``ceil(H / tp)`` per rank. Where H does
 not divide by tp the last ranks get zero heads (zero q/k/v columns and
@@ -161,7 +175,8 @@ class TensorParallel:
         """Rows ``tokens`` of an n-row table split by rows over the group
         (``table`` is this rank's block), in f32: each rank looks up the
         tokens in its block, zeros the others, and the all-reduce adds
-        exact zeros to the one rank's row."""
+        exact zeros to the one rank's row. Its backward gives each rank's
+        block the gradient of its own rows, zero elsewhere."""
         import torch
         import torch.nn.functional as F
 
@@ -169,17 +184,64 @@ class TensorParallel:
         local = tokens - lo
         hit = (local >= 0) & (local < hi - lo)
         rows = F.embedding(local.clamp(0, hi - lo - 1), table).float()
-        return self.all_reduce_f32(torch.where(hit[..., None], rows, 0.0))
+        return self.all_reduce_f32(torch.where(hit[..., None], rows, 0.0),
+                                   name="tp.embed")
 
-    def all_reduce_f32(self, x):
-        """Sum over the group, in f32 (``x`` is upcast first)."""
+    def all_reduce_f32(self, x, name: str = "tp.psum"):
+        """Sum over the group, in f32 (``x`` is upcast first); with grad
+        enabled the differentiable sum, recorded under ``name``
+        (``lower.collective_stats``)."""
+        return self._all_reduce(x.float(), "sum", name)
+
+    def _all_reduce(self, x, op: str, name: str):
+        import torch
         import torch.distributed as dist
 
-        x = x.float()
-        if self.size > 1:
-            x = x.contiguous()
-            dist.all_reduce(x, group=self.group)
+        if self.size == 1:
+            return x
+        x = x.contiguous()
+        if torch.is_grad_enabled():
+            from .lower import group_all_reduce
+
+            return group_all_reduce(x, self.group, name=name, op=op)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=self.group)
         return x
+
+    def enter(self, x):
+        """``x`` entering a column-parallel product (or the vocabulary
+        split of the head): the identity, whose backward sums the
+        cotangent over the group (Megatron's f, JAX's pvary)."""
+        if self.size == 1:
+            return x
+        from .lower import group_pvary
+
+        return group_pvary(x, self.group, name="tp.enter")
+
+    def nll_sum(self, logits, targets, n: int):
+        """The summed cross entropy of rows of logits split by vocabulary
+        over the group: ``logits`` [T, n / size] is this rank's f32 block
+        of rows n wide (zero-padding columns past n take no part),
+        ``targets`` [T] global ids. Each row's max and sum of
+        exponentials are all-reduced in f32, and its gold logit comes
+        from the rank whose block holds the target, so no rank holds a
+        whole row. Differentiable, the same value on every rank."""
+        import torch
+
+        lo, hi = self.block(n)
+        width = hi - lo
+        if hi > n:
+            cols = torch.arange(lo, hi, device=logits.device)
+            logits = torch.where(cols < n, logits, float("-inf"))
+        m = self._all_reduce(logits.detach().amax(-1), "max", "tp.max")
+        total = self.all_reduce_f32(
+            torch.exp(logits - m[:, None]).sum(-1), name="tp.sumexp")
+        local = targets - lo
+        hit = (local >= 0) & (local < width)
+        gold = logits.gather(-1, local.clamp(0, width - 1)[:, None])[:, 0]
+        gold = self.all_reduce_f32(torch.where(hit, gold, 0.0),
+                                   name="tp.gold")
+        return (m + torch.log(total) - gold).sum()
 
     def gather_last(self, x, n: Optional[int] = None):
         """Every rank's ``x`` concatenated along the last dimension (cut

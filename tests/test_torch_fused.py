@@ -182,7 +182,8 @@ def fused_pair():
     jm = JGPT(JConfig.tiny(dtype=jnp.float32, remat=False,
                            fused_entry_exit=True))
     jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
-    tm = GPT(GPTConfig.tiny(dtype=torch.float32, fused_entry_exit=True))
+    tm = GPT(GPTConfig.tiny(dtype=torch.float32, fused_entry_exit=True,
+                            remat=False))
     tp = gpt_params_from_numpy({n: np.asarray(a) for n, a in jp.items()},
                                tm.config, torch.device("cpu"))
     return jm, jp, tm, tp

@@ -54,7 +54,7 @@ def _pair(max_seq=128, use_flash=True, **jax_kw):
                            use_flash=use_flash, max_seq=max_seq, **jax_kw))
     jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
     tm = GPT(GPTConfig.tiny(dtype=torch.float32, use_flash=use_flash,
-                            max_seq=max_seq))
+                            max_seq=max_seq, remat=False))
     tp = gpt_params_from_numpy({n: np.asarray(a) for n, a in jp.items()},
                                tm.config, torch.device("cpu"))
     return jm, jp, tm, tp
@@ -240,7 +240,7 @@ def test_loss_chunked_bf16_matches_jax():
     most 1.1e-2, in b_fc)."""
     jm = JGPT(JConfig.tiny(dtype=jnp.bfloat16, remat=False, max_seq=128))
     jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
-    tm = GPT(GPTConfig.tiny(dtype=torch.bfloat16, max_seq=128))
+    tm = GPT(GPTConfig.tiny(dtype=torch.bfloat16, max_seq=128, remat=False))
     tp = gpt_params_from_numpy({n: np.asarray(a) for n, a in jp.items()},
                                tm.config, torch.device("cpu"))
     tokens, targets = _tokens(5, 2, 128)

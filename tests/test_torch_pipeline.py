@@ -144,7 +144,7 @@ def _gpt_pair(n_layer=2):
                            n_layer=n_layer))
     jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
     tm = GPT(GPTConfig.tiny(dtype=torch.float32, use_flash=False,
-                            n_layer=n_layer))
+                            n_layer=n_layer, remat=False))
     tp = gpt_params_from_numpy({n: np.asarray(a) for n, a in jp.items()},
                                tm.config, torch.device(CPU))
     return jm, jp, tm, tp

@@ -22,8 +22,18 @@ functions on the same numpy inputs (its virtual 8-device CPU mesh):
 - at n_layer=4, the port's ``loss_pp`` at pp=4 equals its pp=1 within
   1e-6, loss and gradients, with and without dropout (one generator
   seed); with dropout the loss differs from the loss without it;
-- the errors: a batch that does not split into M, layers that do not
-  split into P, and a tensor-parallel GPT.
+- the errors: a batch that does not split into M, and layers that do not
+  split into P;
+- a tensor-parallel GPT trains: ``GPT(tp=2)`` ``loss`` and
+  ``loss_chunked`` (remat on) at tp=2 x dp=2 equal JAX
+  ``value_and_grad(loss)`` on the unsplit model (the loss to 2e-5, each
+  rank's gradient to 2e-4 of its ``shard_param`` of JAX's), and
+  ``loss_pp`` at pp=2 x tp=2, remat off and on, equals the JAX
+  ``value_and_grad(loss_pp)`` above likewise, every rank of a pp group
+  bitwise equal to the others;
+- with dropout and one generator seed, ``loss_pp`` at pp=2 x tp=2 equals
+  pp=1 x tp=1 within 1e-6, remat on equals remat off bitwise, and a
+  step calls each collective as often with remat on as off.
 
 One runtime and one gang of four rank actors serve the module, with a
 mesh built per case; the functions the gang runs are defined inside the
@@ -140,6 +150,20 @@ def jax_toy():
 
 
 @pytest.fixture(scope="module")
+def jax_gpt_loss():
+    """JAX ``value_and_grad(loss)`` of the tiny GPT on ``_gpt_inputs``,
+    compiled once."""
+    import jax
+
+    model, params, tokens, targets = _gpt_inputs()
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: model.loss(p, tokens, targets)))(params)
+    return dict(params=params, tokens=tokens, targets=targets,
+                loss=float(loss),
+                grads={k: np.asarray(v) for k, v in grads.items()})
+
+
+@pytest.fixture(scope="module")
 def jax_gpt():
     """JAX ``value_and_grad(loss_pp)`` of the tiny GPT at pp=2 x dp=2 x
     tp=2, compiled once."""
@@ -184,20 +208,6 @@ def test_stack_stages_equals_jax():
     with pytest.raises(ValueError) as err:
         stack_stages({"w": torch.from_numpy(tree["w"])}, 4)
     assert str(err.value) == str(jerr.value)
-
-
-def test_loss_pp_on_a_tensor_parallel_gpt_raises():
-    """loss_pp on a tp rank's GPT is not ported: it raises before it
-    touches the mesh, naming its ROADMAP item."""
-    from ray_tpu_torch.models import GPT, GPTConfig
-    from ray_tpu_torch.parallel.sharding.tensor_parallel import (
-        TensorParallel)
-
-    model = GPT(GPTConfig.tiny(dtype=torch.float32, use_flash=False),
-                tp=TensorParallel(1, 2, group=object()))
-    tokens = torch.zeros(GPT_TOKENS, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="A4.6"):
-        model.loss_pp({}, tokens, tokens, mesh=None)
 
 
 # ---------------------------------------------------------------------------
@@ -355,7 +365,7 @@ def test_gpt_loss_pp_matches_jax_value_and_grad(gang, jax_gpt):
         from ray_tpu_torch.parallel.sharding import MeshOwner
 
         owner = MeshOwner({"pp": 2, "dp": 2}, device_type="cpu")
-        cfg = GPTConfig.tiny(dtype=t.float32, use_flash=False)
+        cfg = GPTConfig.tiny(dtype=t.float32, use_flash=False, remat=False)
         params = gpt_params_from_numpy(np_params, cfg, t.device("cpu"))
         for p in params.values():
             p.requires_grad_()
@@ -456,7 +466,8 @@ def test_gpt_loss_pp_errors_equal_jax(gang, jax_gpt, case):
         from ray_tpu_torch.parallel.sharding import MeshOwner
 
         owner = MeshOwner({"pp": 4}, device_type="cpu")
-        model = GPT(GPTConfig.tiny(dtype=t.float32, use_flash=False))
+        model = GPT(GPTConfig.tiny(dtype=t.float32, use_flash=False,
+                                   remat=False))
         g = t.Generator()
         g.manual_seed(0)
         params = model.init(g)
@@ -484,3 +495,161 @@ def test_gpt_loss_pp_errors_equal_jax(gang, jax_gpt, case):
         assert tail == "2 layers not divisible into 4 stages"
         assert all(r is not None and r.split(": ", 1)[1] == tail
                    for r in res), res
+
+
+# ---------------------------------------------------------------------------
+# training a tensor-parallel GPT
+
+
+def _tp_rank_grads():
+    """A function to run on a rank, made here so that it is pickled by
+    value: ``grads(w, spec, np_params, tokens, targets, fn, remat,
+    dropout=0.0, seed=None)`` builds the tiny GPT (f32, mha_reference) on
+    ``spec``'s mesh with this rank's tp shards of ``np_params`` and runs
+    ``fn`` ("loss", "loss_chunked" or "loss_pp", over GPT_M microbatches
+    or chunks) and its backward. It returns the loss, this rank's
+    gradients, its mesh coordinate and the step's collective calls by
+    name."""
+    m = GPT_M
+
+    def grads(w, spec, np_params, tokens, targets, fn, remat, dropout=0.0,
+              seed=None):
+        import torch as t
+
+        from ray_tpu_torch.models import GPT, GPTConfig
+        from ray_tpu_torch.models.convert import gpt_params_from_numpy
+        from ray_tpu_torch.parallel.sharding import MeshOwner, lower
+        from ray_tpu_torch.parallel.sharding.tensor_parallel import (
+            TensorParallel)
+
+        owner = MeshOwner(spec, device_type="cpu")
+        cfg = GPTConfig.tiny(dtype=t.float32, use_flash=False, remat=remat,
+                             dropout=dropout)
+        model = GPT(cfg, tp=TensorParallel.from_owner(owner, "tp"))
+        params = model.shard_params(gpt_params_from_numpy(
+            np_params, cfg, t.device("cpu")))
+        for p in params.values():
+            p.requires_grad_()
+        gen = None
+        if seed is not None:
+            gen = t.Generator()
+            gen.manual_seed(seed)
+        tok = t.from_numpy(tokens).long()
+        tgt = t.from_numpy(targets).long()
+        lower.collective_stats(reset=True)
+        if fn == "loss_pp":
+            loss = model.loss_pp(params, tok, tgt, owner,
+                                 num_microbatches=m, generator=gen)
+        elif fn == "loss_chunked":
+            loss = model.loss_chunked(params, tok, tgt, generator=gen,
+                                      num_chunks=m)
+        else:
+            loss = model.loss(params, tok, tgt, generator=gen)
+        loss.backward()
+        calls = {k: v["calls"] for k, v in lower.collective_stats().items()}
+        return (float(loss.detach()),
+                {k: p.grad.numpy() for k, p in params.items()},
+                owner.coordinate(), calls)
+    return grads
+
+
+def _shards_of(full_grads, coord):
+    """Rank ``coord``'s tp shards (GPT.shard_param) of full gradients."""
+    from ray_tpu_torch.models import GPT, GPTConfig
+    from ray_tpu_torch.parallel.sharding.tensor_parallel import (
+        TensorParallel)
+
+    model = GPT(GPTConfig.tiny(dtype=torch.float32, use_flash=False),
+                tp=TensorParallel(coord["tp"], 2, group=object()))
+    return {k: model.shard_param(k, torch.tensor(v)).numpy()
+            for k, v in full_grads.items()}
+
+
+def _assert_tp_matches(res, want):
+    """Every rank's loss within 2e-5 and gradients within 2e-4 of the JAX
+    reference's, split through shard_param."""
+    for loss, grads, coord, _ in res:
+        np.testing.assert_allclose(loss, want["loss"], rtol=0, atol=2e-5)
+        shards = _shards_of(want["grads"], coord)
+        assert grads.keys() == shards.keys()
+        for k, g in grads.items():
+            np.testing.assert_allclose(g, shards[k], rtol=2e-4, atol=2e-4,
+                                       err_msg=f"{k} at {coord}")
+
+
+@pytest.mark.parametrize("fn", ["loss", "loss_chunked"])
+def test_tp_gpt_loss_and_grads_match_jax(gang, jax_gpt_loss, fn):
+    """GPT(tp=2) at tp=2 x dp=2, remat on: ``loss`` (the vocabulary-split
+    cross entropy over the full logits) and ``loss_chunked`` (over M
+    chunks) equal JAX value_and_grad(loss) of the unsplit model."""
+    j = jax_gpt_loss
+    res = run_on(gang, _tp_rank_grads(), {"tp": 2, "dp": 2}, j["params"],
+                 j["tokens"], j["targets"], fn, True)
+    assert sorted(c["tp"] for *_, c, _ in res) == [0, 0, 1, 1]
+    _assert_tp_matches(res, j)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["remat_off",
+                                                      "remat_on"])
+def test_loss_pp_on_a_tp_gpt_matches_jax(gang, jax_gpt, remat):
+    """loss_pp at pp=2 x tp=2 (dp -1), M=2: every rank's loss and tp
+    shard's gradients equal JAX value_and_grad(loss_pp) (pp=2, dp=2,
+    tp=2) to 2e-5 and 2e-4; the two ranks of each pp group (one tp
+    coordinate) are bitwise equal."""
+    j = jax_gpt
+    res = run_on(gang, _tp_rank_grads(), {"pp": 2, "tp": 2, "dp": -1},
+                 j["params"], j["tokens"], j["targets"], "loss_pp", remat)
+    _assert_tp_matches(res, j)
+    for tp in (0, 1):
+        (l0, g0, *_), (l1, g1, *_) = [r for r in res if r[2]["tp"] == tp]
+        assert l0 == l1
+        for k in g0:
+            assert np.array_equal(g0[k], g1[k]), (tp, k)
+
+
+def test_loss_pp_tp_dropout_equals_pp1_tp1_and_remat_off(gang, jax_gpt):
+    """Dropout 0.1 with one generator seed: loss_pp at pp=2 x tp=2 (remat
+    on) equals the unsplit loss_pp at pp=1 (a pp=1 x dp=4 mesh) within
+    1e-6, loss and every gradient's shard; remat on equals remat off
+    bitwise, and calls every collective as often."""
+    def body(w, grads, np_params, tokens, targets, m):
+        import torch as t
+
+        from ray_tpu_torch.models import GPT, GPTConfig
+        from ray_tpu_torch.models.convert import gpt_params_from_numpy
+        from ray_tpu_torch.parallel.sharding import MeshOwner
+
+        spec = {"pp": 2, "tp": 2}
+        on = grads(w, spec, np_params, tokens, targets, "loss_pp", True,
+                   0.1, 7)
+        off = grads(w, spec, np_params, tokens, targets, "loss_pp", False,
+                    0.1, 7)
+        cfg = GPTConfig.tiny(dtype=t.float32, use_flash=False, dropout=0.1,
+                             remat=False)
+        params = gpt_params_from_numpy(np_params, cfg, t.device("cpu"))
+        for p in params.values():
+            p.requires_grad_()
+        gen = t.Generator()
+        gen.manual_seed(7)
+        owner = MeshOwner({"pp": 1, "dp": 4}, device_type="cpu")
+        loss = GPT(cfg).loss_pp(params, t.from_numpy(tokens).long(),
+                                t.from_numpy(targets).long(), owner,
+                                num_microbatches=m, generator=gen)
+        loss.backward()
+        return on, off, (float(loss.detach()),
+                         {k: p.grad.numpy() for k, p in params.items()})
+
+    j = jax_gpt
+    res = run_on(gang, body, _tp_rank_grads(), j["params"], j["tokens"],
+                 j["targets"], GPT_M)
+    for on, off, (loss1, grads1) in res:
+        (l_on, g_on, coord, calls_on), (l_off, g_off, _, calls_off) = on, off
+        assert l_on == l_off and calls_on == calls_off
+        assert calls_on["tp.psum"] > 0 and calls_on["tp.enter.T"] > 0
+        for k in g_on:
+            assert np.array_equal(g_on[k], g_off[k]), k
+        np.testing.assert_allclose(l_on, loss1, rtol=0, atol=1e-6)
+        shards = _shards_of(grads1, coord)
+        for k, g in g_on.items():
+            np.testing.assert_allclose(g, shards[k], rtol=0, atol=1e-6,
+                                       err_msg=k)

@@ -176,7 +176,8 @@ def jax_trainer_fit(rt, jax_gpt, tmp_path_factory):
                        "n": len(shard), "first": shard[0]},
                       checkpoint=ckpt)
 
-        model = GPT(GPTConfig.tiny(dtype=t.float32, use_flash=False))
+        model = GPT(GPTConfig.tiny(dtype=t.float32, use_flash=False,
+                                   remat=False))
         params = gpt_params_from_numpy(config["params"], model.config,
                                        t.device("cpu"))
         for p in params.values():
