@@ -21,7 +21,11 @@ Phases, each of which exits non-zero on failure:
               same function, each case run twice and bitwise equal, with
               two planted controls at each training shape (a float8
               operand; each row paired with the row 8 below it) that must
-              fail; and matmul_residual's bf16 backward products against
+              fail; mm_res's f32-output instance (the tensor-parallel
+              exits' partials) at GPT-2 small's tp=2 shapes on 8192 rows,
+              timed beside torch.mm(out_dtype=float32) and the two adds,
+              with and without b and res, and ln_matmul on the tp column
+              shards; and matmul_residual's bf16 backward products against
               the f32 products they stand for. The flash backward
               runs twice on the same inputs and must be bitwise equal;
               each timed flash case prints its time over SDPA's and its
@@ -272,13 +276,26 @@ Phases, each of which exits non-zero on failure:
               the one-process loss_chunked / loss_pp it computes itself;
               the ranks of a pp group are bitwise equal and the
               replicated params equal on every rank; then 1 + 3 AdamW
-              steps on each rank's shards. Prints the step p50, the
-              collectives' ms and bytes by kind, the flash launches a rank
-              (12 + 12 a step in part A, 30 + 30 in part B), peak memory,
-              one profiled step's busy share per rank, and the phase's
-              seconds.
+              steps on each rank's shards. Part C, part A with
+              fused_entry_exit=True, remat off and then on: ln_matmul on
+              each rank's column shard, the row-parallel exits through
+              mm_res's f32 instance (the bias and residual on tp rank 0,
+              the f32 sum rounded once); its planted control (the exit's
+              backward giving db and dres on rank 0 only). Part D, ring
+              attention: GPT-2 small with seq_axis "sp" by gpt_sp_loss at
+              MeshSpec(dp=2, sp=2) on four ranks (each 4 sequences of 512
+              positions), held to one process's loss with use_flash=False
+              on the whole batch, the four ranks bitwise equal; its
+              planted control (the wrapped shards' mask dropped) must fail
+              the loss check. Prints the step p50, the collectives' ms and
+              bytes by kind (part D: the ring's ppermutes and the
+              parameter-gradient sums), the launches a rank (flash 12 + 12
+              a step in parts A and C, 30 + 30 in part B; ln_matmul and
+              mm_res's f32 instance in part C; none in part D), peak
+              memory, one profiled step's busy share per rank, and the
+              phase's seconds.
 
-Seventeen main paths are counted: serving (phases 3-4), training (phase
+Nineteen main paths are counted: serving (phases 3-4), training (phase
 5's steps), fused training (phase 6's steps), MoE training (phase 8's
 steps), ViT and ResNet training (phases 9-10, which launch no
 hand-written kernel), GPT serving (phase 7's timed engine runs, which
@@ -295,15 +312,16 @@ just before the run), train ddp (phase 17 part A's sound run, counted on
 each rank from just before its timed steps to just after them, and the
 driver's, zeroed just before the fit), train resnet (part B's sound
 run, counted so; it launches none), remat (phase 18's remat-on timed
-steps and its Llama remat-on step), tp train and pp tp (phase 19's parts
-A and B, counted on each rank from just before their timed steps to
-just after them, and the driver's, zeroed just before each run). Every
+steps and its Llama remat-on step), tp train, pp tp, fused tp and sp
+ring (phase 19's parts A-D, counted on each rank from just before their
+timed steps to just after them, and the driver's, zeroed just before
+each run; sp ring launches no hand-written kernel). Every
 launch count is zeroed just before each and read just after it; the
 kernel comparisons of phases 2 and 11, the gradient checks, phase 7's
 dense reference forward, phase 13's in-process reference, phase 15's
 control, phase 16's pp=1 run and controls, phase 17's references and
 controls, phase 18's remat-off runs, one-step checks and control, and
-phase 19's references and control do not count.
+phase 19's references and controls do not count.
 The last three lines are the card (as nvidia-smi prints it), the kernels
 JSON line and the result JSON line. Without a CUDA device, or without the
 ray_tpu_torch package beside this file, the script fails before printing
@@ -516,6 +534,25 @@ FUSED_CHECKS = [(f"{label} f32", kernel, n, k, f, "float32")
     ("ragged xl f32", "ln_matmul", 300, 1600, 4800, "float32"),
     ("ragged D=64 f32", "mm_res", 300, 64, 192, "float32"),
 ]
+# The tensor-parallel fused path's shapes (phase 19 part C: GPT-2 small at
+# tp=2 on phase 16's 8 x 1024 tokens, N = 8192), appended last so the
+# cases above keep their seeds: mm_res's f32-output instance, the
+# row-parallel exits' partials, timed with b and res (tp rank 0's call,
+# "mm_res_f32"), checked without them (the other rank's, "mm_res_f32
+# bare"), and ln_matmul on the column shards of w_qkv and w_fc. The f32
+# output is held to f32's limits (summation order only). (label, kernel,
+# N, K, F, dtype, timed)
+TP_N = 8 * 1024
+FUSED_TP_CASES = [
+    ("tp proj", "mm_res_f32", TP_N, 384, 768, "bfloat16", True),
+    ("tp MLP out", "mm_res_f32", TP_N, 1536, 768, "bfloat16", True),
+    ("tp proj bare", "mm_res_f32 bare", TP_N, 384, 768, "bfloat16", False),
+    ("tp MLP out bare", "mm_res_f32 bare", TP_N, 1536, 768, "bfloat16",
+     False),
+    ("tp QKV shard", "ln_matmul", TP_N, 768, 1152, "bfloat16", False),
+    ("tp FC shard", "ln_matmul", TP_N, 768, 1536, "bfloat16", False),
+    ("tp ragged f32", "mm_res_f32", 1000, 384, 768, "float32", False),
+]
 # GPT-2 small training, as bench.py main(): batch, length, LM-head chunk
 # rows, optimizer, warm-up and timed steps; the gradient check's batch.
 TRAIN_BATCH, TRAIN_SEQ, HEAD_CHUNK_ROWS = 40, 1024, 4096
@@ -602,10 +639,11 @@ HEAD_DIM_CASES = [(2, 256, 4, 16), (2, 256, 4, 48)]
 KERNEL_CLASSES = (("flash_fwd", ("flash_fwd_",)),
                   ("flash_bwd", ("flash_bwd_",)),
                   ("ln_matmul", ("ln_stats_kernel", "ln_matmul_f32_kernel",
-                                 "gemm_kernel<128, true>",
-                                 "gemm_kernel<256, true>")),
-                  ("mm_res", ("mm_res_f32_kernel", "gemm_kernel<128, false>",
-                              "gemm_kernel<256, false>")),
+                                 "gemm_kernel<128, true",
+                                 "gemm_kernel<256, true")),
+                  # both instances of mm_res (bf16 out, f32 out)
+                  ("mm_res", ("mm_res_f32_kernel", "gemm_kernel<128, false",
+                              "gemm_kernel<256, false")),
                   ("matmul", ("gemm", "nvjet", "xmma", "cutlass")),
                   ("optimizer", ("multi_tensor_apply",)))
 ENGINE_CONFIG = dict(max_batch=8, num_blocks=256, block_size=16,
@@ -863,6 +901,41 @@ TOL_TP_GRAD = 0.1
 TP_TRAIN_CONTROL = "row-parallel exit's cotangent summed over tp"
 TP_SPLIT_PARAMS = ("wte", "w_qkv", "b_qkv", "w_proj", "w_fc", "b_fc",
                    "w_out")
+# Part C: part A with GPTConfig.fused_entry_exit, remat off and then on
+# (each from the same shards and one reference, the one-process fused
+# loss_chunked): ln_matmul on each rank's column shard of w_qkv and w_fc,
+# each row-parallel exit through the f32 instance of mm_res (tp rank 0
+# adding the bias and the residual), summed in f32 over tp and rounded
+# once. The limits are part A's. The planted control TP_FUSED_CONTROL
+# (the exit's backward giving the bias and residual cotangents on tp rank
+# 0 only, as autograd would if left to follow the forward) must fail the
+# gradient check.
+TP_FUSED_CONTROL = "fused exit's db and dres on tp rank 0 only"
+# phase 19's sound paths, as the kernels line names them
+TP_TRAIN_PATHS = ("tp_train", "pp_tp", "fused_tp", "sp_ring")
+# Part D: ring attention. GPT-2 small with seq_axis "sp" (remat on) on all
+# four ranks at MeshSpec(dp=SP_DP, sp=SP): phase 16's batch (8 x 1024),
+# each rank 4 sequences of 512 positions (global positions), the tied
+# head over SP_HEAD_CHUNKS chunks, the loss a mean over dp and sp, the
+# params replicated and entering through pvary over dp and sp, so every
+# rank steps AdamW on the full gradient. Held to one process's GPT.loss
+# with use_flash=False on the whole batch: the step-0 loss within
+# TOL_SP_LOSS and every parameter's gradient within TOL_TP_GRAD (as part
+# A); the four ranks bitwise equal. The loss check also holds each
+# token's cross entropy (before any step, through GPT.apply on each rank's
+# chunk at its global positions) to the reference's: the root mean square
+# of the difference over the batch at most TOL_SP_TOKEN_RMS. The planted
+# control SP_CONTROL (the wrapped shards' mask dropped: the first half's
+# queries see the second half's keys) must fail the loss check. The mean
+# loss alone cannot see it: the leak moves each token's loss by either
+# sign (on the CPU at full width in f32, B=2: rms 0.158 over the batch,
+# at most 0.87), so the mean moves by a random walk (3.6e-3 there, 2.1e-4
+# on the H100 at B=8 against the sound run's 4.1e-5); bf16 against f32
+# moves a token by rms 0.006 there.
+SP_DP, SP, SP_HEAD_CHUNKS = 2, 2, 4
+TOL_SP_LOSS = 1e-3
+TOL_SP_TOKEN_RMS = 0.05
+SP_CONTROL = "wrapped shards' mask dropped"
 
 
 class SmokeFailure(Exception):
@@ -1023,13 +1096,17 @@ def bwd_variant(q, k, v, out, lse, do, causal, sm_scale, fault):
 def fused_bound(kernel, n, k, f, dtype):
     """(ms, 'bytes'|'operations') the card needs at least for one call of
     ln_matmul (x [n, k], g, b [k] f32, w [k, f], wb [f]) or mm_res (a
-    [n, k], w [k, f], b [f], res [n, f]): each input read once, the output
-    [n, f] written once; the product's 2*n*k*f FLOPs at the operand type's
-    rate (the layernorm's and the epilogue's f32 work, under 0.5 GFLOP at
-    these shapes, takes less time at the f32 rate than the product)."""
+    [n, k], w [k, f], b [f], res [n, f]; "mm_res_f32": b and the output
+    f32): each input read once, the output [n, f] written once; the
+    product's 2*n*k*f FLOPs at the operand type's rate (the layernorm's
+    and the epilogue's f32 work, under 0.5 GFLOP at these shapes, takes
+    less time at the f32 rate than the product)."""
     itemsize = 2 if dtype == "bfloat16" else 4
     if kernel == "ln_matmul":
         moved = (n * k + k * f + f + n * f) * itemsize + 2 * k * 4
+    elif kernel == "mm_res_f32":
+        # a, w, res in their type, b in f32, out in f32
+        moved = (n * k + k * f + n * f) * itemsize + f * 4 + n * f * 4
     else:
         moved = (n * k + k * f + f + 2 * n * f) * itemsize
     t_bytes = moved / PEAK_BYTES_PER_S
@@ -1074,7 +1151,7 @@ def fused_control(kernel, args, fault):
     """A control (one of FUSED_CONTROLS): the plain version with the
     normalised row (ln_matmul) or a (mm_res) rounded to float8_e4m3 before
     the product; or with row r taking row r + 8's statistics (ln_matmul)
-    or residual (mm_res)."""
+    or residual (mm_res); "mm_res_f32" as mm_res, left in f32."""
     import torch
 
     from ray_tpu_torch.ops.fused import _ln_ref
@@ -1093,11 +1170,12 @@ def fused_control(kernel, args, fault):
                  + b.float()).to(w.dtype).float()
         return (h @ w.float() + wb.float()).to(x.dtype)
     a, w, b, res = args
+    out_dtype = torch.float32 if kernel == "mm_res_f32" else a.dtype
     if fault == FUSED_CONTROLS[0]:
         return (a.to(f8).float() @ w.float() + b.float()
-                + res.float()).to(a.dtype)
+                + res.float()).to(out_dtype)
     return (a.float() @ w.float() + b.float()
-            + res.float().roll(-8, 0)).to(a.dtype)
+            + res.float().roll(-8, 0)).to(out_dtype)
 
 
 def phase_kernels_fused():
@@ -1109,41 +1187,61 @@ def phase_kernels_fused():
     bars (not enforced: at most 1.0x the composition; at least 50% of the
     bound at FC and MLP out); untimed checks at f32 and at other shapes;
     every case run twice, bitwise equal; then matmul_residual's backward
-    products in bf16 against the f32 products they stand for."""
+    products in bf16 against the f32 products they stand for. The
+    tensor-parallel cases (FUSED_TP_CASES) include mm_res's f32-output
+    instance, timed beside torch.mm(a, w, out_dtype=float32) and the two
+    adds."""
     import torch
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import (ln_matmul_fwd, ln_matmul_plain,
+                                   matmul_partial_f32_fwd,
+                                   matmul_partial_f32_plain,
                                    matmul_residual_fwd, matmul_residual_plain)
 
     fns = {"ln_matmul": (ln_matmul_fwd, ln_matmul_plain),
-           "mm_res": (matmul_residual_fwd, matmul_residual_plain)}
+           "mm_res": (matmul_residual_fwd, matmul_residual_plain),
+           "mm_res_f32": (matmul_partial_f32_fwd, matmul_partial_f32_plain),
+           "mm_res_f32 bare": (matmul_partial_f32_fwd,
+                               matmul_partial_f32_plain)}
     rows = []
     cases = [(label, kernel, n, k, f, "bfloat16", True)
              for label, kernel, n, k, f in FUSED_CASES]
     cases += [(*case, False) for case in FUSED_CHECKS]
+    cases += FUSED_TP_CASES
     for i, (label, kernel, n, k, f, dtype, timed) in enumerate(cases):
-        args = fused_inputs(kernel, n, k, f, dtype, SEED + 200 + i)
+        args = fused_inputs("ln_matmul" if kernel == "ln_matmul"
+                            else "mm_res", n, k, f, dtype, SEED + 200 + i)
+        if kernel == "mm_res_f32 bare":      # a tp rank past 0: no b, res
+            args = args[:2]
         fn, plain = fns[kernel]
+        f32_out = kernel.startswith("mm_res_f32")
+        out_dtype = torch.float32 if f32_out else args[0].dtype
+        tol_key = "float32" if f32_out else dtype
         out = fn(*args)
         torch.cuda.synchronize()
         # no split-K, no atomics: a second call is bitwise equal
         check(torch.equal(out, fn(*args)),
               f"{kernel} {label}: the output differs between two calls")
         ref = plain(*args)
-        check(out.shape == (n, f) and out.dtype == args[0].dtype,
+        check(out.shape == (n, f) and out.dtype == out_dtype,
               f"{kernel} {label}: output {tuple(out.shape)} {out.dtype}")
         check(bool(torch.isfinite(out.float()).all()),
               f"{kernel} {label}: non-finite output")
         err_abs = (out.float() - ref.float()).abs().max().item()
         scaled, rms = fused_errors(out, ref)
-        text = (f"{kernel} {label} [{n}, {k}] x [{k}, {f}] {dtype}: bitwise "
+        text = (f"{kernel} {label} [{n}, {k}] x [{k}, {f}] {dtype}"
+                f"{' -> f32' if f32_out else ''}: bitwise "
                 f"equal over two calls; max abs "
                 f"err {err_abs:.3e}, scaled {scaled:.3e} (tol "
-                f"{TOL_FUSED[dtype]}), rms {rms:.3e} (tol "
-                f"{TOL_FUSED_RMS[dtype]})")
-        row = dict(label=label, kernel=kernel, shape=[n, k, f], dtype=dtype,
+                f"{TOL_FUSED[tol_key]}), rms {rms:.3e} (tol "
+                f"{TOL_FUSED_RMS[tol_key]})")
+        row = dict(label=label, kernel="ln_matmul" if kernel == "ln_matmul"
+                   else "mm_res", shape=[n, k, f], dtype=dtype,
                    max_abs_err=err_abs, scaled_err=scaled, rms_err=rms)
+        if f32_out:
+            row["instance"] = "f32 out" + (", no b or res"
+                                           if kernel.endswith("bare") else "")
         controls = {}
         if timed:
             controls = {fault: fused_errors(fused_control(kernel, args, fault),
@@ -1156,13 +1254,20 @@ def phase_kernels_fused():
                 gc_, bc_ = g.to(x.dtype), b.to(x.dtype)
                 lib_ms = cuda_ms(lambda: torch.addmm(
                     wb, F.layer_norm(x, (k,), gc_, bc_), w), reps=20)
+            elif f32_out:
+                # tensor_parallel.matmul_f32's product, then the adds
+                a, w, b, res = args
+                b32 = b.float()
+                lib_ms = cuda_ms(lambda: torch.mm(
+                    a, w, out_dtype=torch.float32).add_(b32).add_(res),
+                    reps=20)
             else:
                 a, w, b, res = args
                 lib_ms = cuda_ms(lambda: torch.addmm(res + b, a, w), reps=20)
             bound_ms, bound_by = fused_bound(kernel, n, k, f, dtype)
             bars = [f"{ms / lib_ms:.2f}x the composition (bar 1.0x: "
                     f"{'met' if ms <= lib_ms else 'not met'})"]
-            if label == FUSED_MAIN[kernel]:
+            if label == FUSED_MAIN.get(kernel):
                 bars.append(f"bar 50% of bound: "
                             f"{'met' if bound_ms / ms >= 0.5 else 'not met'}")
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -1172,15 +1277,17 @@ def phase_kernels_fused():
                                  for c, e in controls.items()})
             text += "".join(f"; control ({c}): scaled {e[0]:.3e}, rms "
                             f"{e[1]:.3e}" for c, e in controls.items())
+            lib_name = "mm(out f32) + adds" if f32_out \
+                else "cuBLAS composition"
             text += (f"; kernel {ms:.4f} ms, plain "
-                     f"{plain_ms:.4f} ms, cuBLAS composition {lib_ms:.4f} "
+                     f"{plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} "
                      f"ms, bound {bound_ms:.4f} ms ({bound_by}); "
                      f"{bound_ms / ms:.1%} of bound; " + "; ".join(bars))
         print(f"[kernels] {text}")
-        check(fused_agrees(scaled, rms, dtype),
+        check(fused_agrees(scaled, rms, tol_key),
               f"{kernel} {label} disagrees with its plain version")
         for fault, e in controls.items():
-            check(not fused_agrees(*e, dtype),
+            check(not fused_agrees(*e, tol_key),
                   f"{kernel} {label}: the control ({fault}) passes the check")
         rows.append(row)
         del args, out, ref
@@ -4890,27 +4997,57 @@ def phase_pp_spmd(wrappers, card, device=None):
                                 for f in wrappers[2:]})
 
 
+def _tp_fused_control_exit(model, dtype):
+    """TP_FUSED_CONTROL: ``model._exit`` (the tp model's fused exit)
+    replaced by one whose backward gives the bias and residual cotangents
+    on tp rank 0 only, as autograd would if it followed the forward."""
+    import torch
+
+    from ray_tpu_torch.models.gpt import _RowParallelExit
+
+    tp = model.tp
+
+    class RankZeroOnly(_RowParallelExit):
+        @staticmethod
+        def backward(ctx, dout):
+            da, dw, db, dres, _ = _RowParallelExit.backward(ctx, dout)
+            if tp.rank:
+                db, dres = torch.zeros_like(db), torch.zeros_like(dres)
+            return da, dw, db, dres, None
+
+    def exit_(a, wt, b, res):
+        return RankZeroOnly.apply(a, wt.to(dtype), b.to(dtype), res, tp)
+
+    model._exit = exit_
+
+
 def tp_train_rank_run(w, part, mode):
-    """On a rank of phase 19's gang: GPT-2 small (remat on) from the
-    seed-0 init and phase 16's batch. ``part`` "A" runs GPT(tp=2)
-    .loss_chunked over M chunks on the mesh {"tp": TP_TRAIN} (the ranks
-    past it return None); "B" runs loss_pp over M microbatches on
-    {"pp": PP_SPMD, "tp": TP_TRAIN}. Each rank first computes the
-    one-process reference on the full params (loss_chunked, or loss_pp at
-    pp=1), takes its shard of the reference gradient and frees the rest.
-    ``mode`` "sound": TP_TRAIN_WARMUP + TP_TRAIN_STEPS AdamW steps on this
-    rank's shards, the step-0 loss and gradients held to the reference's,
-    the kernel launches, collectives and peak memory of the timed steps,
-    and one more step, under torch.profiler on the mesh's first rank;
-    TP_TRAIN_CONTROL: the step-0 loss and gradients alone, each
-    row-parallel exit's backward summing its cotangent over tp. The
-    ranks off part A's mesh run their first CUDA work instead."""
+    """On a rank of phase 19's gang: GPT-2 small from the seed-0 init and
+    phase 16's batch. ``part`` "A" runs GPT(tp=2).loss_chunked over M
+    chunks on the mesh {"tp": TP_TRAIN} (the ranks past it return None);
+    "B" runs loss_pp over M microbatches on {"pp": PP_SPMD, "tp":
+    TP_TRAIN}; "C" runs part A's loss_chunked with fused_entry_exit, with
+    remat off and then on. Each rank first computes the one-process
+    reference on the full params (loss_chunked, or loss_pp at pp=1; part
+    C's fused), takes its shard of the reference gradient and frees the
+    rest. ``mode`` "sound": TP_TRAIN_WARMUP + TP_TRAIN_STEPS AdamW steps
+    on this rank's shards (part C: for each remat setting, from the same
+    shards), the step-0 loss and gradients held to the reference's, the
+    kernel launches, collectives and peak memory of the timed steps, and
+    (parts A and B) one more step, under torch.profiler on the mesh's
+    first rank;
+    TP_TRAIN_CONTROL (part A): the step-0 loss and gradients alone, each
+    row-parallel exit's backward summing its cotangent over tp;
+    TP_FUSED_CONTROL (part C): the same, the fused exit's backward giving
+    the bias and residual cotangents on tp rank 0 only. The ranks off
+    part A's and C's mesh run their first CUDA work instead."""
     import torch
 
     from ray_tpu_torch.models import GPT, GPTConfig
     from ray_tpu_torch.models.gpt import _LMHead
     from ray_tpu_torch.ops import (flash_attention_bwd, flash_attention_fwd,
-                                   ln_matmul_fwd, matmul_residual_fwd)
+                                   ln_matmul_fwd, matmul_partial_f32_fwd,
+                                   matmul_residual_fwd)
     from ray_tpu_torch.parallel.sharding import MeshOwner, lower
     from ray_tpu_torch.parallel.sharding.tensor_parallel import (
         TensorParallel)
@@ -4925,13 +5062,13 @@ def tp_train_rank_run(w, part, mode):
 
     # every rank builds every mesh, in one order: their groups form
     # collectively
-    spec = {"tp": TP_TRAIN} if part == "A" else {"pp": PP_SPMD,
-                                                 "tp": TP_TRAIN}
+    spec = {"pp": PP_SPMD, "tp": TP_TRAIN} if part == "B" \
+        else {"tp": TP_TRAIN}
     owner = MeshOwner(spec, device_type=dev.type)
     ref_owner = MeshOwner({"pp": 1, "dp": -1}, device_type=dev.type) \
         if part == "B" else None
     coord = owner.coordinate()
-    c = GPTConfig.small(use_flash=True)
+    c = GPTConfig.small(use_flash=True, fused_entry_exit=part == "C")
     full = GPT(c)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -4941,9 +5078,9 @@ def tp_train_rank_run(w, part, mode):
                            generator=gen, device=dev)
     targets = torch.roll(tokens, -1, dims=1)
     if coord is None:
-        # off part A's mesh: this rank's first CUDA work (its context,
-        # cuBLAS, the kernels' libraries) runs here, beside part A, and
-        # not inside part B's first step
+        # off the tp mesh: this rank's first CUDA work (its context,
+        # cuBLAS, the kernels' libraries) runs here, beside the part, and
+        # not inside a later part's first step
         with torch.no_grad():
             full.loss_chunked(full_params, tokens[:1], targets[:1])
         sync()
@@ -4952,10 +5089,10 @@ def tp_train_rank_run(w, part, mode):
     names = list(full_params)
 
     def loss_of(model, params, mesh):
-        if part == "A":
-            return model.loss_chunked(params, tokens, targets, num_chunks=M)
-        return model.loss_pp(params, tokens, targets, mesh,
-                             num_microbatches=M)
+        if part == "B":
+            return model.loss_pp(params, tokens, targets, mesh,
+                                 num_microbatches=M)
+        return model.loss_chunked(params, tokens, targets, num_chunks=M)
 
     for p in full_params.values():
         p.requires_grad_()
@@ -4964,35 +5101,231 @@ def tp_train_rank_run(w, part, mode):
                                     [full_params[n] for n in names])
     model = full.tensor_parallel(TensorParallel.from_owner(owner, "tp"))
     ref = [model.shard_param(n, g) for n, g in zip(names, ref_grads)]
-    params = {n: model.shard_param(n, p.detach()).clone().requires_grad_()
+    shards = {n: model.shard_param(n, p.detach()).clone()
               for n, p in full_params.items()}
     del full_params, ref_grads
     out = dict(coord=coord, pid=os.getpid(), device=str(dev),
                ref_loss=float(ref_loss.detach()))
-    if mode == TP_TRAIN_CONTROL:
+    if mode != "sound":
         tp, dtype = model.tp, c.dtype
+        if mode == TP_TRAIN_CONTROL:
+            def counted_twice(x, wt):
+                part_sum = _LMHead.apply(x.reshape(-1, x.shape[-1]),
+                                         wt.to(dtype).T)
+                return tp.all_reduce_f32(tp.enter(part_sum)).reshape(
+                    *x.shape[:-1], -1).to(dtype)
 
-        def counted_twice(x, wt):
-            part_sum = _LMHead.apply(x.reshape(-1, x.shape[-1]),
-                                     wt.to(dtype).T)
-            return tp.all_reduce_f32(tp.enter(part_sum)).reshape(
-                *x.shape[:-1], -1).to(dtype)
-
-        model._mm_row = counted_twice
+            model._mm_row = counted_twice
+        else:
+            _tp_fused_control_exit(model, dtype)
+        params = {n: p.requires_grad_() for n, p in shards.items()}
         loss = loss_of(model, params, owner)
         grads = torch.autograd.grad(loss, [params[n] for n in names])
         out.update(loss0=float(loss.detach()),
                    rel_err=param_rel_errors(names, grads, ref))
         return out
 
+    counted = (flash_attention_fwd, flash_attention_bwd, ln_matmul_fwd,
+               matmul_residual_fwd, matmul_partial_f32_fwd)
+
+    def train(model, profile=True):
+        run = {}
+        params = {n: p.clone().requires_grad_() for n, p in shards.items()}
+        opt = torch.optim.AdamW(list(params.values()), lr=TRAIN_LR,
+                                weight_decay=TRAIN_WD)
+        losses, walls = [], []
+        t_steps = time.perf_counter()
+        for step in range(TP_TRAIN_WARMUP + TP_TRAIN_STEPS):
+            if step == TP_TRAIN_WARMUP:          # the timed steps start here
+                sync()
+                for f in counted:
+                    f.launches = 0
+                lower.collective_stats(reset=True)
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+            sync()
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = loss_of(model, params, owner)
+            loss.backward()
+            if step == 0:
+                grads = [params[n].grad for n in names]
+                run["rel_err"] = param_rel_errors(names, grads, ref)
+                run["grad_digests"] = _digests(dict(zip(names, grads)))
+                del grads
+            opt.step()
+            losses.append(float(loss.detach()))
+            sync()
+            walls.append(time.perf_counter() - t0)
+        t_read = time.perf_counter()
+        run["launches"] = {f.__name__: f.launches for f in counted}
+        run["collectives"] = lower.collective_stats()
+        run["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda \
+            else None
+        run.update(losses=losses, walls=walls, loss0=losses[0],
+                   param_digests=_digests(params))
+        t_profile = time.perf_counter()
+        if cuda and profile:
+            # one more step on every rank, under torch.profiler on the
+            # first
+            def step():
+                opt.zero_grad(set_to_none=True)
+                loss_of(model, params, owner).backward()
+                opt.step()
+
+            if any(coord.values()):
+                step()
+                sync()
+            else:
+                run["profiled"] = profiled(step)[:2]
+        run["seconds"] = {k: round(b - a, 1) for k, a, b in (
+            ("steps", t_steps, t_read),
+            ("profile", t_profile, time.perf_counter()))}
+        del params, opt, loss
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        return run
+
+    t_set_up = time.perf_counter() - t_start
+    if part == "C":
+        # no profiled step: parts A and D read the busy share
+        for remat in (False, True):
+            out["remat_on" if remat else "remat_off"] = train(GPT(
+                dataclasses.replace(c, remat=remat), tp=model.tp),
+                profile=False)
+    else:
+        out.update(train(model))
+    out["set_up_s"] = round(t_set_up, 1)
+    return out
+
+
+def _leaky_ring(q, k, v, axis_name="sp", causal=True, sm_scale=None):
+    """SP_CONTROL: ring_attention with the wrapped shards' mask dropped,
+    so a rank's queries attend to the keys of the ranks after it."""
+    from ray_tpu_torch.parallel.sharding import lower
+
+    ring = importlib.import_module("ray_tpu_torch.ops.ring_attention")
+    sm_scale = 1.0 / q.shape[-1] ** 0.5 if sm_scale is None else sm_scale
+    n = lower.axis_size(axis_name)
+    out, lse = ring._block_attn_lse(q, k, v, sm_scale, causal=causal)
+    perm = [(i, (i + 1) % n) for i in range(n)]
+    for _ in range(1, n):
+        k = lower.ppermute(k, axis_name, perm, name="ring")
+        v = lower.ppermute(v, axis_name, perm, name="ring")
+        o_r, lse_r = ring._block_attn_lse(q, k, v, sm_scale, causal=False)
+        out, lse = ring._merge(out, lse, o_r, lse_r)
+    return out.to(q.dtype)
+
+
+def sp_train_rank_run(w, mode):
+    """On a rank of phase 19's gang, part D: GPT-2 small with seq_axis
+    "sp" (remat on) from the seed-0 init and phase 16's batch, trained by
+    gpt_sp_loss at MeshSpec(dp=SP_DP, sp=SP): this rank's [batch / SP_DP,
+    TRAIN_SEQ / SP] shard, positions global, the params replicated and
+    entering through pvary over dp and sp. Each rank first computes the
+    one-process reference, GPT.loss with use_flash=False on the whole
+    batch, and its gradients. ``mode`` "sound": TP_TRAIN_WARMUP +
+    TP_TRAIN_STEPS AdamW steps on the full params, the step-0 loss and
+    gradients held to the reference's, the launches, collectives and peak
+    memory of the timed steps, and one more step under torch.profiler on
+    the mesh's first rank; SP_CONTROL: the step-0 loss and gradients alone,
+    through a ring without the wrapped shards' mask. Either way, first,
+    each token's cross entropy against the reference's (``token_err``)."""
+    import torch
+
+    from ray_tpu_torch.models import GPT, GPTConfig
+    from ray_tpu_torch.models.gpt import gpt_sp_loss
+    from ray_tpu_torch.ops import (flash_attention_bwd, flash_attention_fwd,
+                                   ln_matmul_fwd, matmul_partial_f32_fwd,
+                                   matmul_residual_fwd)
+    from ray_tpu_torch.parallel.mesh import PartitionSpec
+    from ray_tpu_torch.parallel.sharding import MeshOwner, lower
+
+    t_start = time.perf_counter()
+    dev = torch.device(w.mesh_owner.mesh.device_type)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    owner = MeshOwner({"dp": SP_DP, "sp": SP}, device_type=dev.type)
+    coord = owner.coordinate()
+    c = GPTConfig.small(seq_axis="sp")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    full_params = GPT(c).init(gen)
+    batch = PP_SPMD_MICROBATCHES * PP_SPMD_MB
+    tokens = torch.randint(0, c.vocab_size, (batch, TRAIN_SEQ),
+                           generator=gen, device=dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    names = list(full_params)
+    for p in full_params.values():
+        p.requires_grad_()
+    ref_model = GPT(dataclasses.replace(c, seq_axis=None, use_flash=False))
+    ref_loss = ref_model.loss(full_params, tokens, targets)
+    ref = torch.autograd.grad(ref_loss, [full_params[n] for n in names])
+    b, s = batch // SP_DP, TRAIN_SEQ // SP
+    rows = slice(coord["dp"] * b, (coord["dp"] + 1) * b)
+    cols = slice(coord["sp"] * s, (coord["sp"] + 1) * s)
+    tok, tgt = tokens[rows, cols], targets[rows, cols]
+
+    def token_nll(logits, labels):
+        return torch.logsumexp(logits, -1) - logits.gather(
+            -1, labels[..., None])[..., 0]
+
+    with torch.no_grad():
+        ref_nll = token_nll(ref_model.apply(full_params, tokens[rows]),
+                            targets[rows])[:, cols]
+    params = {n: p.detach().clone().requires_grad_()
+              for n, p in full_params.items()}
+    del full_params
+    model = GPT(c)
+    out = dict(coord=coord, pid=os.getpid(), device=str(dev),
+               ref_loss=float(ref_loss.detach()))
+
+    def loss_of():
+        return gpt_sp_loss(model, params, tok, tgt, owner,
+                           num_chunks=SP_HEAD_CHUNKS)
+
+    def token_err():
+        """(rms, max abs) over this rank's tokens of the ring model's
+        cross entropy against the reference's, before any step."""
+        def body(tk, tg):
+            pos = lower.axis_index("sp") * s + torch.arange(
+                s, device=tk.device)[None]
+            return token_nll(model.apply(params, tk, positions=pos), tg)
+
+        spec = PartitionSpec("dp", "sp")
+        with torch.no_grad():
+            d = lower.lower_shard_map(body, owner, in_specs=(spec, spec),
+                                      out_specs=spec)(tok, tgt) - ref_nll
+        return d.square().mean().sqrt().item(), d.abs().max().item()
+
+    if mode == SP_CONTROL:
+        gpt_mod = importlib.import_module("ray_tpu_torch.models.gpt")
+        gpt_mod.ring_attention = _leaky_ring
+        try:
+            out["token_err"] = token_err()
+            loss = loss_of()
+            grads = torch.autograd.grad(loss, [params[n] for n in names])
+        finally:
+            gpt_mod.ring_attention = importlib.import_module(
+                "ray_tpu_torch.ops.ring_attention").ring_attention
+        out.update(loss0=float(loss.detach()),
+                   rel_err=param_rel_errors(names, grads, ref))
+        return out
+    out["token_err"] = token_err()
+
+    counted = (flash_attention_fwd, flash_attention_bwd, ln_matmul_fwd,
+               matmul_residual_fwd, matmul_partial_f32_fwd)
     opt = torch.optim.AdamW(list(params.values()), lr=TRAIN_LR,
                             weight_decay=TRAIN_WD)
-    counted = (flash_attention_fwd, flash_attention_bwd, ln_matmul_fwd,
-               matmul_residual_fwd)
     losses, walls = [], []
     t_steps = time.perf_counter()
     for step in range(TP_TRAIN_WARMUP + TP_TRAIN_STEPS):
-        if step == TP_TRAIN_WARMUP:          # the timed steps start here
+        if step == TP_TRAIN_WARMUP:              # the timed steps start here
             sync()
             for f in counted:
                 f.launches = 0
@@ -5002,7 +5335,7 @@ def tp_train_rank_run(w, part, mode):
         sync()
         t0 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
-        loss = loss_of(model, params, owner)
+        loss = loss_of()
         loss.backward()
         if step == 0:
             grads = [params[n].grad for n in names]
@@ -5021,10 +5354,9 @@ def tp_train_rank_run(w, part, mode):
                param_digests=_digests(params))
     t_profile = time.perf_counter()
     if cuda:
-        # one more step on every rank, under torch.profiler on the first
         def step():
             opt.zero_grad(set_to_none=True)
-            loss_of(model, params, owner).backward()
+            loss_of().backward()
             opt.step()
 
         if any(coord.values()):
@@ -5043,16 +5375,104 @@ def tp_train_rank_run(w, part, mode):
     return out
 
 
+def tp_run_report(label, desc, runs, per_layer_step, fused_per_step,
+                  wrappers, driver):
+    """Phase 19's checks and lines of one sound run of parts A-C:
+    ``runs`` each rank's result, ``per_layer_step`` the flash launches a
+    rank a step, ``fused_per_step`` {wrapper name: (least, most)} fused
+    launches a rank a step (the others must be 0), ``driver`` the
+    driver's launch counts over the run."""
+    n_ranks = len(runs)
+    worst = [worst_error(r["rel_err"]) for r in runs]
+    loss_err = max(abs(r["loss0"] - r["ref_loss"]) for r in runs)
+    # ranks of one tp coordinate (a pp group) hold the same shards; the
+    # replicated params are the same on every rank
+    groups = {}
+    for r in runs:
+        groups.setdefault(r["coord"]["tp"], []).append(r)
+    groups_equal = all(
+        r["losses"] == g[0]["losses"]
+        and r["grad_digests"] == g[0]["grad_digests"]
+        and r["param_digests"] == g[0]["param_digests"]
+        for g in groups.values() for r in g[1:])
+    replicated_equal = all(
+        r["grad_digests"][n] == runs[0]["grad_digests"][n]
+        and r["param_digests"][n] == runs[0]["param_digests"][n]
+        for r in runs[1:] for n in r["param_digests"]
+        if n not in TP_SPLIT_PARAMS)
+    names = [f.__name__ for f in wrappers]
+    per_step = [{n: r["launches"][n] / TP_TRAIN_STEPS for n in names}
+                for r in runs]
+    r0 = runs[0]
+    p50 = statistics.median(r0["walls"][TP_TRAIN_WARMUP:])
+    coll = {k: round(v["seconds"] * 1e3 / TP_TRAIN_STEPS, 3)
+            for k, v in sorted(r0["collectives"].items())}
+    coll_bytes = {k: v["bytes"] // TP_TRAIN_STEPS
+                  for k, v in sorted(r0["collectives"].items())}
+    peaks = [None if r["peak_bytes"] is None
+             else round(r["peak_bytes"] / 2**30, 2) for r in runs]
+    print(f"[tp train] {desc}, {n_ranks} ranks (pids "
+          f"{[r['pid'] for r in runs]}): step-0 loss {r0['loss0']!r} "
+          f"vs the one-process reference {r0['ref_loss']!r} (worst "
+          f"rank {loss_err:.3e}, limit {TOL_TP_LOSS}); worst "
+          f"||g - g_ref|| / ||g_ref|| per rank "
+          f"{[(n, float(f'{e:.4g}')) for n, e in worst]} (limit "
+          f"{TOL_TP_GRAD}); rank 0 per parameter "
+          + json.dumps({n: float(f"{e:.4g}")
+                        for n, e in r0["rel_err"].items()}))
+    print(f"[tp train] {desc}: losses {r0['losses']}; pp groups "
+          f"bitwise equal {groups_equal}; replicated params bitwise "
+          f"equal on every rank {replicated_equal}; launches a step per "
+          f"rank {per_step}; driver {driver}")
+    print(f"[tp train] {desc}: step wall "
+          f"{[round(t * 1e3, 2) for t in r0['walls']]} ms (p50 of the "
+          f"{TP_TRAIN_STEPS} timed {p50 * 1e3:.2f} ms); collectives ms "
+          f"a step on rank 0 {coll}, bytes a step {coll_bytes}; peak "
+          f"allocated per rank {peaks} GiB; in the ranks "
+          f"{[r['seconds'] for r in runs]} s")
+    check(all(r["device"].startswith("cuda") for r in runs),
+          f"{label}: ranks {[(r['coord'], r['device']) for r in runs]}")
+    check(loss_err <= TOL_TP_LOSS,
+          f"{label}: step-0 loss off the reference's by {loss_err}")
+    check(all(e <= TOL_TP_GRAD for _, e in worst),
+          f"{label}: gradients off the reference's: {worst}")
+    check(groups_equal, f"{label}: a pp group's ranks differ")
+    check(replicated_equal,
+          f"{label}: the replicated params differ between ranks")
+    check(all(math.isfinite(x) for x in r0["losses"])
+          and r0["losses"][-1] < r0["losses"][0],
+          f"{label}: losses {r0['losses']}")
+    want = {n: fused_per_step.get(n, (0, 0)) for n in names[2:]}
+    want.update({n: (per_layer_step, per_layer_step) for n in names[:2]})
+    for d in per_step:
+        for n, (lo, hi) in want.items():
+            check(lo <= d[n] <= hi, f"{label}: {n} launched {d[n]} times "
+                  f"a step on a rank, want {lo}-{hi}")
+    check(not any(driver.values()),
+          f"the driver launched {driver} on the {label} path")
+    profiles = {f"rank {i}": kernel_breakdown(
+        *r["profiled"], f"tp train {label} rank {i}")
+        for i, r in enumerate(runs) if "profiled" in r}
+    return dict(
+        loss0=r0["loss0"], ref_loss=r0["ref_loss"], loss_err=loss_err,
+        worst_grad_err=worst, losses=r0["losses"], step_wall_s=r0["walls"],
+        step_p50_s=p50, collectives_ms=coll, collective_bytes=coll_bytes,
+        peak_gib=peaks, launches_per_step=per_step, profiles=profiles,
+        launches={n: sum(r["launches"][n] for r in runs) for n in names})
+
+
 def phase_tp_train(wrappers, card, device=None):
     """Phase 19: a tensor-parallel GPT-2 small trained on the card, by a
     gang of TP_TRAIN_RANKS gloo rank processes (module docstring): part
     A, GPT(tp=2).loss_chunked on two of them, its planted control, and
-    part B, loss_pp at pp=2 x tp=2 on all four, each rank held to the
-    one-process reference it computes itself. The driver's launch counts
-    of ``wrappers`` are zeroed just before each sound run and read just
-    after (it launches nothing); each rank counts its own timed steps.
-    ``device`` (None: the card) is for a rehearsal on the CPU, where the
-    checks of the card fail by design."""
+    part B, loss_pp at pp=2 x tp=2 on all four; part C, part A fused
+    (remat off, then on), its planted control; part D, ring attention at
+    dp=2 x sp=2 on all four, its planted control. Each rank is held to
+    the one-process reference it computes itself. The driver's launch
+    counts of ``wrappers`` are zeroed just before each sound run and read
+    just after (it launches nothing); each rank counts its own timed
+    steps. ``device`` (None: the card) is for a rehearsal on the CPU,
+    where the checks of the card fail by design."""
     import ray_tpu_torch
     from ray_tpu_torch.models import GPTConfig
     from ray_tpu_torch.parallel.mesh import MeshSpec
@@ -5061,6 +5481,7 @@ def phase_tp_train(wrappers, card, device=None):
     t_phase = time.perf_counter()
     device_type = "cuda" if device is None else str(device)
     c = GPTConfig.small(use_flash=True)
+    L = c.n_layer
     ray_tpu_torch.init(num_cpus=TP_TRAIN_RANKS)
     gang = None
     try:
@@ -5070,128 +5491,170 @@ def phase_tp_train(wrappers, card, device=None):
         up_s = time.perf_counter() - t0
         run_s, driver = {}, {}
 
-        def timed_run(label, part, mode):
+        def timed_run(label, fn, *args):
             for f in wrappers:
                 f.launches = 0
             t1 = time.perf_counter()
-            res = [r for r in gang.run(tp_train_rank_run, part, mode)
-                   if r is not None]
+            res = [r for r in gang.run(fn, *args) if r is not None]
             run_s[label] = round(time.perf_counter() - t1, 1)
             driver[label] = {f.__name__: f.launches for f in wrappers}
             return res
 
-        parts = {"tp_train": timed_run("tp_train", "A", "sound"),
-                 "control": timed_run("control", "A", TP_TRAIN_CONTROL),
-                 "pp_tp": timed_run("pp_tp", "B", "sound")}
+        parts = {
+            "tp_train": timed_run("tp_train", tp_train_rank_run, "A",
+                                  "sound"),
+            "control": timed_run("control", tp_train_rank_run, "A",
+                                 TP_TRAIN_CONTROL),
+            "pp_tp": timed_run("pp_tp", tp_train_rank_run, "B", "sound"),
+            "fused_tp": timed_run("fused_tp", tp_train_rank_run, "C",
+                                  "sound"),
+            "fused_control": timed_run("fused_control", tp_train_rank_run,
+                                       "C", TP_FUSED_CONTROL),
+            "sp_ring": timed_run("sp_ring", sp_train_rank_run, "sound"),
+            "sp_control": timed_run("sp_control", sp_train_rank_run,
+                                    SP_CONTROL)}
     finally:
         if gang is not None:
             gang.shutdown()
         ray_tpu_torch.shutdown()
 
     ticks = PP_SPMD_MICROBATCHES + PP_SPMD - 1
-    want = {"tp_train": (2, c.n_layer), "pp_tp": (4, ticks * c.n_layer
-                                                  // PP_SPMD)}
     out = {}
-    for label, desc in (("tp_train", f"GPT(tp={TP_TRAIN}).loss_chunked"),
-                        ("pp_tp", f"loss_pp at pp={PP_SPMD} x "
-                                  f"tp={TP_TRAIN}")):
+    for label, n_ranks, want in (("tp_train", 2, L),
+                                 ("pp_tp", 4, ticks * L // PP_SPMD)):
         runs = parts[label]
-        n_ranks, per_layer_step = want[label]
-        check(len(runs) == n_ranks and all(r["device"].startswith("cuda")
-                                           for r in runs),
-              f"{label}: ranks {[(r['coord'], r['device']) for r in runs]}")
-        worst = [worst_error(r["rel_err"]) for r in runs]
-        loss_err = max(abs(r["loss0"] - r["ref_loss"]) for r in runs)
-        # ranks of one tp coordinate (a pp group) hold the same shards;
-        # the replicated params are the same on every rank
-        groups = {}
-        for r in runs:
-            groups.setdefault(r["coord"]["tp"], []).append(r)
-        groups_equal = all(
-            r["losses"] == g[0]["losses"]
-            and r["grad_digests"] == g[0]["grad_digests"]
-            and r["param_digests"] == g[0]["param_digests"]
-            for g in groups.values() for r in g[1:])
-        replicated_equal = all(
-            r["grad_digests"][n] == runs[0]["grad_digests"][n]
-            and r["param_digests"][n] == runs[0]["param_digests"][n]
-            for r in runs[1:] for n in r["param_digests"]
-            if n not in TP_SPLIT_PARAMS)
-        per_step = [{n: r["launches"][f.__name__] / TP_TRAIN_STEPS
-                     for n, f in zip(("flash_fwd", "flash_bwd"), wrappers)}
-                    for r in runs]
-        fused = sum(r["launches"][f.__name__] for r in runs
-                    for f in wrappers[2:])
-        r0 = runs[0]
-        p50 = statistics.median(r0["walls"][TP_TRAIN_WARMUP:])
-        coll = {k: round(v["seconds"] * 1e3 / TP_TRAIN_STEPS, 3)
-                for k, v in sorted(r0["collectives"].items())}
-        coll_bytes = {k: v["bytes"] // TP_TRAIN_STEPS
-                      for k, v in sorted(r0["collectives"].items())}
-        peaks = [None if r["peak_bytes"] is None
-                 else round(r["peak_bytes"] / 2**30, 2) for r in runs]
-        print(f"[tp train] {desc}, {n_ranks} ranks (pids "
-              f"{[r['pid'] for r in runs]}): step-0 loss {r0['loss0']!r} "
-              f"vs the one-process reference {r0['ref_loss']!r} (worst "
-              f"rank {loss_err:.3e}, limit {TOL_TP_LOSS}); worst "
-              f"||g - g_ref|| / ||g_ref|| per rank "
-              f"{[(n, float(f'{e:.4g}')) for n, e in worst]} (limit "
-              f"{TOL_TP_GRAD}); rank 0 per parameter "
-              + json.dumps({n: float(f"{e:.4g}")
-                            for n, e in r0["rel_err"].items()}))
-        print(f"[tp train] {desc}: losses {r0['losses']}; pp groups "
-              f"bitwise equal {groups_equal}; replicated params bitwise "
-              f"equal on every rank {replicated_equal}; flash launches a "
-              f"step per rank {per_step}; driver {driver[label]}")
-        print(f"[tp train] {desc} on {card}: step wall "
-              f"{[round(t * 1e3, 2) for t in r0['walls']]} ms (p50 of the "
-              f"{TP_TRAIN_STEPS} timed {p50 * 1e3:.2f} ms); collectives ms "
-              f"a step on rank 0 {coll}, bytes a step {coll_bytes}; peak "
-              f"allocated per rank {peaks} GiB; in the ranks "
-              f"{[r['seconds'] for r in runs]} s")
-        check(loss_err <= TOL_TP_LOSS,
-              f"{label}: step-0 loss off the reference's by {loss_err}")
-        check(all(e <= TOL_TP_GRAD for _, e in worst),
-              f"{label}: gradients off the reference's: {worst}")
-        check(groups_equal, f"{label}: a pp group's ranks differ")
-        check(replicated_equal,
-              f"{label}: the replicated params differ between ranks")
-        check(all(math.isfinite(x) for x in r0["losses"])
-              and r0["losses"][-1] < r0["losses"][0],
-              f"{label}: losses {r0['losses']}")
-        check(all(d == {"flash_fwd": per_layer_step,
-                        "flash_bwd": per_layer_step} for d in per_step),
-              f"{label}: flash launches a step per rank {per_step}, want "
-              f"{per_layer_step} each")
-        check(not fused, f"{label}: a rank launched a fused kernel")
-        check(not any(driver[label].values()),
-              f"the driver launched {driver[label]} on the {label} path")
-        profiles = {f"rank {i}": kernel_breakdown(
-            *r["profiled"], f"tp train {label} rank {i}")
-            for i, r in enumerate(runs) if "profiled" in r}
-        out[label] = dict(
-            loss0=r0["loss0"], ref_loss=r0["ref_loss"], loss_err=loss_err,
-            worst_grad_err=worst, losses=r0["losses"], step_wall_s=r0[
-                "walls"], step_p50_s=p50, collectives_ms=coll,
-            collective_bytes=coll_bytes, peak_gib=peaks,
-            launches_per_step=per_step, profiles=profiles,
-            launches={n: sum(r["launches"][f.__name__] for r in runs)
-                      for n, f in zip(("flash_fwd", "flash_bwd"),
-                                      wrappers)})
-    ctl = parts["control"]
-    ctl_worst = max((worst_error(r["rel_err"]) for r in ctl),
-                    key=lambda x: x[1])
-    print(f"[tp train] control '{TP_TRAIN_CONTROL}': worst ||g - g_ref|| "
-          f"/ ||g_ref|| {ctl_worst[1]:.4g} ({ctl_worst[0]}), step-0 loss "
-          f"{ctl[0]['loss0']!r}")
-    check(ctl_worst[1] > TOL_TP_GRAD,
-          f"control '{TP_TRAIN_CONTROL}' passes the gradient check")
+        check(len(runs) == n_ranks, f"{label}: {len(runs)} ranks")
+        desc = (f"GPT(tp={TP_TRAIN}).loss_chunked" if label == "tp_train"
+                else f"loss_pp at pp={PP_SPMD} x tp={TP_TRAIN}")
+        out[label] = tp_run_report(label, desc, runs, want, {}, wrappers,
+                                   driver[label])
+    # part C: the fused entry (ln_matmul) and the row-parallel exits (the
+    # f32 instance of mm_res) twice a layer a step; remat recomputes them
+    # (the kernels are not dispatcher ops), at most once more
+    fused_runs = parts["fused_tp"]
+    check(len(fused_runs) == 2, f"fused_tp: {len(fused_runs)} ranks")
+    names = [f.__name__ for f in wrappers]
+    out["fused_tp"] = {}
+    for key, hi in (("remat_off", 2 * L), ("remat_on", 4 * L)):
+        runs = [dict(r, **r[key]) for r in fused_runs]
+        out["fused_tp"][key] = tp_run_report(
+            f"fused_tp {key}", f"GPT(tp={TP_TRAIN}, fused_entry_exit=True)"
+            f".loss_chunked, {key.replace('_', ' ')}", runs, L,
+            {names[2]: (2 * L, hi), names[4]: (2 * L, hi)}, wrappers,
+            driver["fused_tp"])
+    out["fused_tp"]["launches"] = {
+        n: sum(out["fused_tp"][k]["launches"][n]
+               for k in ("remat_off", "remat_on")) for n in names}
+    for label, ctl_label, fault in (
+            ("control", "tp_train", TP_TRAIN_CONTROL),
+            ("fused_control", "fused_tp", TP_FUSED_CONTROL)):
+        ctl = parts[label]
+        ctl_worst = max((worst_error(r["rel_err"]) for r in ctl),
+                        key=lambda x: x[1])
+        print(f"[tp train] control '{fault}': worst ||g - g_ref|| / "
+              f"||g_ref|| {ctl_worst[1]:.4g} ({ctl_worst[0]}), step-0 "
+              f"loss {ctl[0]['loss0']!r}")
+        check(ctl_worst[1] > TOL_TP_GRAD,
+              f"control '{fault}' passes the gradient check")
+        out[ctl_label]["control_worst"] = ctl_worst
+    out["sp_ring"] = sp_report(parts["sp_ring"], parts["sp_control"],
+                               wrappers, driver["sp_ring"], L)
     phase_s = time.perf_counter() - t_phase
     print(f"[tp train] the phase took {phase_s:.1f} s (gang {up_s:.1f} s, "
           f"runs {run_s} s)")
-    out.update(control_worst=ctl_worst, up_s=up_s, run_s=run_s,
-               phase_s=phase_s)
+    out.update(up_s=up_s, run_s=run_s, phase_s=phase_s)
     return out
+
+
+def sp_report(runs, ctl, wrappers, driver, n_layer):
+    """Phase 19 part D's checks and lines: the four ranks' sound run
+    (``runs``), its control (``ctl``), the driver's launch counts over
+    the sound run and the model's layers."""
+    check(len(runs) == SP_DP * SP and all(
+        r["device"].startswith("cuda") for r in runs),
+        f"sp_ring: ranks {[(r['coord'], r['device']) for r in runs]}")
+    worst = [worst_error(r["rel_err"]) for r in runs]
+    loss_err = max(abs(r["loss0"] - r["ref_loss"]) for r in runs)
+
+    def token_rms(rs):
+        # the ranks' chunks are equal in size
+        return math.sqrt(sum(r["token_err"][0] ** 2 for r in rs) / len(rs))
+
+    tok_rms = token_rms(runs)
+    tok_max = max(r["token_err"][1] for r in runs)
+    r0 = runs[0]
+    bitwise = all(r["losses"] == r0["losses"]
+                  and r["grad_digests"] == r0["grad_digests"]
+                  and r["param_digests"] == r0["param_digests"]
+                  for r in runs[1:])
+    names = [f.__name__ for f in wrappers]
+    launched = {n: sum(r["launches"][n] for r in runs) for n in names}
+    p50 = statistics.median(r0["walls"][TP_TRAIN_WARMUP:])
+    coll = {k: dict(calls=v["calls"] / TP_TRAIN_STEPS,
+                    ms=round(v["seconds"] * 1e3 / TP_TRAIN_STEPS, 3),
+                    bytes=v["bytes"] // TP_TRAIN_STEPS)
+            for k, v in sorted(r0["collectives"].items())}
+    peaks = [None if r["peak_bytes"] is None
+             else round(r["peak_bytes"] / 2**30, 2) for r in runs]
+    ctl_err = max(abs(r["loss0"] - r["ref_loss"]) for r in ctl)
+    ctl_tok_rms = token_rms(ctl)
+    ctl_tok_max = max(r["token_err"][1] for r in ctl)
+    ctl_worst = max((worst_error(r["rel_err"]) for r in ctl),
+                    key=lambda x: x[1])
+    desc = f"gpt_sp_loss at dp={SP_DP} x sp={SP} (ring attention)"
+    print(f"[tp train] {desc}, {len(runs)} ranks (pids "
+          f"{[r['pid'] for r in runs]}): step-0 loss {r0['loss0']!r} vs "
+          f"the one-process reference (use_flash=False) "
+          f"{r0['ref_loss']!r} (worst rank {loss_err:.3e}, limit "
+          f"{TOL_SP_LOSS}); each token's cross entropy against the "
+          f"reference's: rms {tok_rms:.3e} (limit {TOL_SP_TOKEN_RMS}), max "
+          f"{tok_max:.3e}; worst ||g - g_ref|| / ||g_ref|| per rank "
+          f"{[(n, float(f'{e:.4g}')) for n, e in worst]} (limit "
+          f"{TOL_TP_GRAD}); rank 0 per parameter "
+          + json.dumps({n: float(f"{e:.4g}")
+                        for n, e in r0["rel_err"].items()}))
+    print(f"[tp train] {desc}: losses {r0['losses']}; ranks bitwise equal "
+          f"(losses, step-0 gradients, params) {bitwise}; launches "
+          f"{launched}; driver {driver}; control '{SP_CONTROL}': step-0 "
+          f"loss {ctl[0]['loss0']!r}, off the reference by {ctl_err:.3e}, "
+          f"tokens' cross entropy rms {ctl_tok_rms:.3e}, max "
+          f"{ctl_tok_max:.3e}, worst gradient {ctl_worst[1]:.4g} "
+          f"({ctl_worst[0]})")
+    print(f"[tp train] {desc}: step wall "
+          f"{[round(t * 1e3, 2) for t in r0['walls']]} ms (p50 of the "
+          f"{TP_TRAIN_STEPS} timed {p50 * 1e3:.2f} ms); collectives a step "
+          f"on rank 0 {json.dumps(coll)}; peak allocated per rank {peaks} "
+          f"GiB; in the ranks {[r['seconds'] for r in runs]} s")
+    def loss_agrees(err, rms):
+        return err <= TOL_SP_LOSS and rms <= TOL_SP_TOKEN_RMS
+
+    check(loss_agrees(loss_err, tok_rms),
+          f"sp_ring: step-0 loss off the reference's by {loss_err}, the "
+          f"tokens' by rms {tok_rms}")
+    check(all(e <= TOL_TP_GRAD for _, e in worst),
+          f"sp_ring: gradients off the reference's: {worst}")
+    check(bitwise, "sp_ring: the ranks differ")
+    check(all(math.isfinite(x) for x in r0["losses"])
+          and r0["losses"][-1] < r0["losses"][0],
+          f"sp_ring: losses {r0['losses']}")
+    check(coll.get("ring", {}).get("calls") == 2 * (SP - 1) * n_layer
+          and coll.get("ring.T", {}).get("calls") == 2 * (SP - 1)
+          * n_layer, f"sp_ring: ppermutes a step {coll}")
+    check(not any(launched.values()) and not any(driver.values()),
+          f"sp_ring: the ring path launched {launched}, driver {driver}")
+    check(not loss_agrees(ctl_err, ctl_tok_rms),
+          f"control '{SP_CONTROL}' passes the loss check ({ctl_err}, "
+          f"{ctl_tok_rms})")
+    profiles = {f"rank {i}": kernel_breakdown(
+        *r["profiled"], f"tp train sp_ring rank {i}")
+        for i, r in enumerate(runs) if "profiled" in r}
+    return dict(
+        loss0=r0["loss0"], ref_loss=r0["ref_loss"], loss_err=loss_err,
+        token_rms=tok_rms, token_max=tok_max,
+        worst_grad_err=worst, losses=r0["losses"], step_wall_s=r0["walls"],
+        step_p50_s=p50, collectives=coll, peak_gib=peaks,
+        profiles=profiles, launches=launched, control_loss_err=ctl_err,
+        control_token_rms=ctl_tok_rms, control_worst=ctl_worst)
 
 
 def _tree_digest(tree):
@@ -5909,7 +6372,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
     from ray_tpu_torch.ops import (flash_attention_bwd, flash_attention_fwd,
-                                   ln_matmul_fwd, matmul_residual_fwd)
+                                   ln_matmul_fwd, matmul_partial_f32_fwd,
+                                   matmul_residual_fwd)
     from ray_tpu_torch.serve.llm import LLMServer
 
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda}, "
@@ -6000,7 +6464,8 @@ def main() -> int:
         pp_spmd = phase_pp_spmd(wrappers, card)
         gc.collect()
         torch.cuda.empty_cache()
-        tp_train = phase_tp_train(wrappers, card)
+        tp_train = phase_tp_train(wrappers + (matmul_partial_f32_fwd,),
+                                  card)
         gc.collect()
         torch.cuda.empty_cache()
         train_phase = phase_train(wrappers, card)
@@ -6043,9 +6508,9 @@ def main() -> int:
                         pp_spmd=pp_spmd["launches"]["flash_fwd"],
                         remat=remat_phase["launches"][
                             flash_attention_fwd.__name__],
-                        tp_train=tp_train["tp_train"]["launches"][
-                            "flash_fwd"],
-                        pp_tp=tp_train["pp_tp"]["launches"]["flash_fwd"],
+                        **{path: tp_train[path]["launches"][
+                            flash_attention_fwd.__name__]
+                           for path in TP_TRAIN_PATHS},
                         **{path: counts[flash_attention_fwd.__name__]
                            for path, counts in
                            train_phase["launches"].items()})
@@ -6058,9 +6523,9 @@ def main() -> int:
                         pp_spmd=pp_spmd["launches"]["flash_bwd"],
                         remat=remat_phase["launches"][
                             flash_attention_bwd.__name__],
-                        tp_train=tp_train["tp_train"]["launches"][
-                            "flash_bwd"],
-                        pp_tp=tp_train["pp_tp"]["launches"]["flash_bwd"],
+                        **{path: tp_train[path]["launches"][
+                            flash_attention_bwd.__name__]
+                           for path in TP_TRAIN_PATHS},
                         **{path: counts[flash_attention_bwd.__name__]
                            for path, counts in
                            train_phase["launches"].items()})
@@ -6111,12 +6576,18 @@ def main() -> int:
         rows = [r for r in fused_rows if r["kernel"] == name]
         main_row = next(r for r in rows if r["label"] == FUSED_MAIN[name])
         n, k, f = main_row["shape"]
+        # the tp fused path's launches: ln_matmul, or both instances of
+        # mm_res (its exits take the f32 one)
+        tp_fused = tp_train["fused_tp"]["launches"]
+        fused_tp = tp_fused[ln_matmul_fwd.__name__] if name == "ln_matmul" \
+            else (tp_fused[matmul_residual_fwd.__name__]
+                  + tp_fused[matmul_partial_f32_fwd.__name__])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"ray_tpu_torch/csrc/{name}.cu",
             "replaces": [replaces],
-            "launches": training_fused["launches"][name],
             "launches_by_path": {
+                "fused_tp": fused_tp,
                 "training_fused": training_fused["launches"][name],
                 "disagg": disagg_launches(
                     ln_matmul_fwd if name == "ln_matmul"
@@ -6144,6 +6615,13 @@ def main() -> int:
             "shape": f"[{n}, {k}] x [{k}, {f}] bf16",
             "by_shape": rows,
         })
+        kernels[-1]["launches"] = sum(
+            kernels[-1]["launches_by_path"].values())
+        if name == "mm_res":
+            # the f32-output instance (the tp exits' partials), launched
+            # on the fused_tp path only
+            kernels[-1]["f32_partial_launches"] = tp_fused[
+                matmul_partial_f32_fwd.__name__]
     summary = {"forward": forward, "serving": serving,
                "tp_serving": tp_serving, "training": training,
                "training_fused": training_fused,

@@ -508,20 +508,22 @@ inline bool make_bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int H
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Tensor map of a contiguous bf16 [rows, cols] matrix whose box is
-// `box_rows` rows of 64 columns (128 bytes, 128-byte swizzle, as TileGeom<64>
-// describes), at any column and row origin. Rows and columns past the
-// matrix read as zeros and are not written by a store. Returns false if the
-// map cannot be encoded.
+// Tensor map of a contiguous bf16 (or, with `f32`, float32) [rows, cols]
+// matrix whose box is `box_rows` rows of 128 bytes (64 bf16 or 32 f32
+// columns, 128-byte swizzle, as TileGeom<64> describes), at any column and
+// row origin. Rows and columns past the matrix read as zeros and are not
+// written by a store. Returns false if the map cannot be encoded.
 inline bool make_2d_map(CUtensorMap* map, const void* ptr, int rows, int cols,
-                        int box_rows) {
+                        int box_rows, bool f32 = false) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
+  const cuuint32_t esize = f32 ? 4 : 2;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * esize};
+  const cuuint32_t box[2] = {128 / esize, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                2, const_cast<void*>(ptr), dims,
                 strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -1,6 +1,6 @@
 // hopper_gemm.cuh — the bf16 GEMM main loop that ln_matmul.cu and mm_res.cu
 // share on Hopper (sm_90a): out[N, F] = epi(A[N, K] . W[K, F]), f32
-// accumulation, with two prologues for A and two epilogues.
+// accumulation, with two prologues for A and three epilogues.
 //
 //   LN = true  (ln_matmul): A is layernorm(x) rounded to bf16, made in
 //              registers from the raw x tile (below) and fed to wgmma as its
@@ -8,6 +8,11 @@
 //   LN = false (mm_res):    A is `a` from shared memory; epilogue
 //              (acc + b[col]) + res[row, col].
 // Both add in f32 and round once to bf16.
+//   LN = false, OUT32 = true (mm_res's f32 partial, the row-parallel exit
+//              under tensor parallelism): the same main loop; epilogue
+//              (acc + b[col]) + res[row, col], each add only where the caller
+//              passes b (a null bias) or res (Params::has_res), out in f32,
+//              never rounded.
 //
 // Design (the hopper.cuh building blocks):
 //   - Persistent grid: one block an SM walks output tiles of [BM = 128, BN]
@@ -44,6 +49,13 @@
 //     buffer in the swizzled box layout (conflict-free), and one thread
 //     stores its 64-row boxes by TMA. The producer already streams the next
 //     tile's stages meanwhile.
+//   - OUT32: the f32 staging buffer is twice the bf16 one (64 KB at BN =
+//     128), beside the residual's bf16 staging, so the ring holds four
+//     stages, not five (224 KB in all). Its boxes are 32 columns wide (128
+//     bytes of f32, the 128-byte swizzle); a consumer's float2 pairs land in
+//     them with at most a two-way bank conflict. Once a consumer has read
+//     its rows of the residual it frees the residual buffer, before its
+//     stores.
 //   - Tails: TMA reads rows past N as zeros and the stores clip them; F is a
 //     multiple of 64, and boxes of a tile that lie wholly past F or N are
 //     neither loaded nor stored (their columns of the accumulator are never
@@ -64,30 +76,39 @@ constexpr int BK = 64;                        // depth of one stage
 constexpr int CONSUMERS = 2;                  // consumer warpgroups, 64 rows each
 constexpr int THREADS = 128 * (CONSUMERS + 1);
 
-template <int BN, bool LN>
+template <int BN, bool LN, bool OUT32 = false>
 struct Smem {
-  static constexpr int STAGES = BN == 256 ? 3 : 5;   // as shared memory allows
+  static_assert(!(LN && OUT32), "the f32 output is mm_res's");
+  // as shared memory allows
+  static constexpr int STAGES = OUT32 ? 4 : BN == 256 ? 3 : 5;
   static constexpr int BOXES = BN / 64;       // 64-column boxes a tile
   static constexpr uint32_t a_tile = BM * BK * 2;
   static constexpr uint32_t w_box = BK * 64 * 2;
   static constexpr uint32_t stage = a_tile + BOXES * w_box;
-  static constexpr uint32_t c_box = BM * 64 * 2;          // staging: BOXES of these
+  // bf16 staging (the output, or mm_res's residual): BOXES of these
+  static constexpr uint32_t c_box = BM * 64 * 2;
+  // f32 staging of the output (OUT32): 2 * BOXES boxes of 32 columns
+  static constexpr uint32_t o_box = OUT32 ? BM * 32 * 4 : 0;
   static constexpr uint32_t gb_bytes = LN ? 2 * BK * 4 : 0;  // g, b of a stage
   static constexpr size_t c_off = static_cast<size_t>(STAGES) * stage;
-  static constexpr size_t gb_off = c_off + BOXES * c_box;
+  static constexpr size_t o_off = c_off + BOXES * c_box;
+  static constexpr size_t gb_off = o_off + 2 * BOXES * o_box;
   static constexpr size_t bar_off = gb_off + STAGES * gb_bytes;
   // full[STAGES], empty[STAGES], c_full, c_empty
   static constexpr size_t bytes = bar_off + 8 * (2 * STAGES + 2);
   static constexpr size_t alloc = bytes + 1024;           // for the alignment
-  static_assert(stage % 1024 == 0 && c_box % 1024 == 0, "boxes on 1024-byte lines");
+  static_assert(stage % 1024 == 0 && c_box % 1024 == 0 && o_box % 1024 == 0,
+                "boxes on 1024-byte lines");
+  static_assert(alloc <= 232448, "over the 227 KB a block may use");
 };
 
 struct Params {
-  const float* bias;    // [F]: wb (ln_matmul) or b (mm_res)
+  const float* bias;    // [F]: wb (ln_matmul) or b (mm_res; null: none, OUT32)
   const float* g;       // [K] (ln_matmul)
   const float* b;       // [K] (ln_matmul)
   const float* stats;   // mean [N], then rstd [N] (ln_matmul)
   int N, K, F;
+  int has_res;          // mm_res: a residual is added (launch sets it)
 };
 
 // K-major A operand: rows [64 w, 64 w + 64) of the [128 x 64] tile, slice kk.
@@ -101,16 +122,17 @@ __device__ __forceinline__ uint64_t desc_w(const unsigned char* tile, int kk) {
   return make_desc(tile + 16 * kk * 128, Smem<BN, false>::w_box, 1024, 1);
 }
 
-template <int BN, bool LN>
+template <int BN, bool LN, bool OUT32>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
             const __grid_constant__ CUtensorMap tm_out,
             const __grid_constant__ CUtensorMap tm_res, const Params p) {
-  using S = Smem<BN, LN>;
+  using S = Smem<BN, LN, OUT32>;
   constexpr int STAGES = S::STAGES, BOXES = S::BOXES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* cbuf = smem + S::c_off;
+  unsigned char* obuf = smem + S::o_off;      // OUT32's f32 staging
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::bar_off);
   uint64_t* empty = full + STAGES;
   uint64_t* c_full = empty + STAGES;
@@ -154,7 +176,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CU
             float* gb = reinterpret_cast<float*>(smem + S::gb_off) + s * 2 * BK;
             bulk_load(gb, p.g + ks * BK, BK * 4, &full[s]);
             bulk_load(gb + BK, p.b + ks * BK, BK * 4, &full[s]);
-          } else if (ks == min(STAGES, ksteps) - 1) {
+          } else if (p.has_res && ks == min(STAGES, ksteps) - 1) {
             // the residual tile, once the ring holds this tile's first
             // stages and the previous tile's epilogue is done with cbuf
             const int halves = m0 + 64 < p.N ? 2 : 1;
@@ -256,42 +278,73 @@ gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CU
       }
       release(it - 1);
 
-      // ---- epilogue: f32 adds, one rounding, staged for the TMA store ----
-      if constexpr (LN) {
-        named_bar_sync(1 + wgi, 128);       // the previous store has read cbuf
-      } else {
-        mbar_wait(c_full, local & 1);       // the residual tile has arrived
+      // ---- epilogue: f32 adds, one rounding (none for OUT32), staged for
+      // the TMA store ----
+      if constexpr (LN || OUT32) {
+        named_bar_sync(1 + wgi, 128);       // the previous store has read the staging
       }
+      if constexpr (!LN) {
+        // the residual tile has arrived (the bf16 mm_res always has one)
+        if (p.has_res) mbar_wait(c_full, local & 1);
+      }
+      const bool has_bias = p.bias != nullptr;
 #pragma unroll
       for (int i = 0; i < BN / 8; ++i) {
         if (i / 8 >= boxes) continue;
-        const float2 bias = __ldg(reinterpret_cast<const float2*>(p.bias + n0 + 8 * i + 2 * quad));
+        float2 bias = make_float2(0.0f, 0.0f);
+        if (has_bias) bias = __ldg(reinterpret_cast<const float2*>(p.bias + n0 + 8 * i + 2 * quad));
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
           const int r = trow + 8 * hr;
           uint32_t* cp = reinterpret_cast<uint32_t*>(
               cbuf + (i / 8) * S::c_box + r * 128 + (((i % 8) ^ (r % 8)) * 16) + 4 * quad);
-          float v0 = acc[4 * i + 2 * hr] + bias.x;
-          float v1 = acc[4 * i + 2 * hr + 1] + bias.y;
-          if constexpr (!LN) {
-            const float2 res = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cp));
-            v0 += res.x;
-            v1 += res.y;
+          float v0 = acc[4 * i + 2 * hr];
+          float v1 = acc[4 * i + 2 * hr + 1];
+          if (has_bias) {
+            v0 += bias.x;
+            v1 += bias.y;
           }
-          *cp = pack_bf16(v0, v1);
+          if constexpr (!LN) {
+            if (p.has_res) {
+              const float2 res = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cp));
+              v0 += res.x;
+              v1 += res.y;
+            }
+          }
+          if constexpr (OUT32) {
+            // column 8 i + 2 quad: box i / 4 of 32 columns, 16-byte chunk
+            // 2 (i % 4) + quad / 2 of the row, its half quad % 2
+            float2* op = reinterpret_cast<float2*>(
+                obuf + (i / 4) * S::o_box + r * 128 +
+                (((2 * (i % 4) + quad / 2) ^ (r % 8)) * 16) + 8 * (quad % 2));
+            *op = make_float2(v0, v1);
+          } else {
+            *cp = pack_bf16(v0, v1);
+          }
         }
       }
-      fence_proxy_async();                  // cbuf's writes before the TMA reads
+      fence_proxy_async();                  // the staging's writes before the TMA reads
       named_bar_sync(1 + wgi, 128);
       if (tid == 0) {
         if (m0 + 64 * wgi < p.N) {
-          for (int x = 0; x < boxes; ++x)
-            tma_store_2d(&tm_out, cbuf + x * S::c_box + wgi * (S::c_box / 2), n0 + 64 * x,
-                         m0 + 64 * wgi);
+          if constexpr (OUT32) {
+            for (int x = 0; x < 2 * boxes; ++x)
+              tma_store_2d(&tm_out, obuf + x * S::o_box + wgi * (S::o_box / 2), n0 + 32 * x,
+                           m0 + 64 * wgi);
+          } else {
+            for (int x = 0; x < boxes; ++x)
+              tma_store_2d(&tm_out, cbuf + x * S::c_box + wgi * (S::c_box / 2), n0 + 64 * x,
+                           m0 + 64 * wgi);
+          }
           bulk_commit();
         }
+        // OUT32: this consumer's rows of the residual were read before the
+        // barrier above
+        if constexpr (OUT32) {
+          if (p.has_res) mbar_arrive(c_empty);
+        }
         bulk_wait_read();
-        if constexpr (!LN) mbar_arrive(c_empty);
+        if constexpr (!LN && !OUT32) mbar_arrive(c_empty);
       }
     }
   }
@@ -308,24 +361,27 @@ inline int sm_count() {
   return n;
 }
 
-// Encode the maps (A [N, K], W [K, F], out [N, F], res [N, F] or null), raise
-// the kernel's shared memory limit and launch it on the persistent grid.
-template <int BN, bool LN>
+// Encode the maps (A [N, K], W [K, F], out [N, F] (f32 for OUT32), res
+// [N, F] or null), raise the kernel's shared memory limit and launch it on
+// the persistent grid.
+template <int BN, bool LN, bool OUT32 = false>
 cudaError_t launch(const void* a, const void* w, void* out, const void* res,
-                   const Params& p, cudaStream_t stream) {
+                   const Params& params, cudaStream_t stream) {
+  Params p = params;
+  p.has_res = res != nullptr;
   CUtensorMap tm_a, tm_w, tm_out, tm_res;
   if (!make_2d_map(&tm_a, a, p.N, p.K, BM) || !make_2d_map(&tm_w, w, p.K, p.F, BK) ||
-      !make_2d_map(&tm_out, out, p.N, p.F, 64) ||
-      !make_2d_map(&tm_res, res != nullptr ? res : out, p.N, p.F, 64))
+      !make_2d_map(&tm_out, out, p.N, p.F, 64, OUT32) ||
+      !make_2d_map(&tm_res, res != nullptr ? res : a, p.N, p.F, 64))
     return cudaErrorInvalidValue;
-  constexpr size_t bytes = Smem<BN, LN>::alloc;
-  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<BN, LN>,
+  constexpr size_t bytes = Smem<BN, LN, OUT32>::alloc;
+  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<BN, LN, OUT32>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const int tiles = ((p.N + BM - 1) / BM) * ((p.F + BN - 1) / BN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  gemm_kernel<BN, LN><<<grid, THREADS, bytes, stream>>>(tm_a, tm_w, tm_out, tm_res, p);
+  gemm_kernel<BN, LN, OUT32><<<grid, THREADS, bytes, stream>>>(tm_a, tm_w, tm_out, tm_res, p);
   return cudaGetLastError();
 }
 

@@ -22,6 +22,17 @@
 // w [3072, 768] (MLP out) is 193 GFLOP against 382 MB, bound by the
 // operations (0.195 ms against 0.114 ms).
 //
+// The f32-output instance (out_f32 = 1) is the tensor-parallel GPT's
+// row-parallel exit (models/gpt.py): each rank's partial a . w of its rows of
+// the weight, accumulated and returned in f32 for the all-reduce, + b and
+// + res added in f32 only where the caller passes them (tp rank 0 passes
+// both, the other ranks neither); the sum is rounded once, after the
+// all-reduce. At GPT-2 small's tp=2 shapes, N = 8192, with b and res: a
+// [8192, 384] with w [384, 768] moves 44.7 MB (the f32 output 25.2 MB of it)
+// against 4.8 GFLOP, bound by the bytes (0.013 ms against 0.005 ms); a
+// [8192, 1536] with w [1536, 768] moves 65.4 MB against 19.3 GFLOP, about
+// even (0.0195 ms either way).
+//
 // Design:
 //   - bf16: the warp-specialised wgmma GEMM of hopper_gemm.cuh, both operands
 //     from shared memory by TMA; the producer prefetches the residual tile
@@ -29,8 +40,10 @@
 //     is bound by its bytes, so the residual must not be waited for after
 //     the products); epilogue (acc + b) + res in f32 from the registers and
 //     the staged residual, one cast, TMA stores.
+//   - bf16 operands, f32 out: the same GEMM's OUT32 instance, whose epilogue
+//     adds what is given and stores f32 boxes by TMA (hopper_gemm.cuh).
 //   - f32: the FMA GEMM of tile_gemm.cuh with an epilogue that reads the
-//     bias and the residual and adds both in f32.
+//     bias and the residual and adds each in f32 where it is given.
 
 #include "hopper_gemm.cuh"
 #include "tile_gemm.cuh"
@@ -70,12 +83,15 @@ struct CopyPrologue {
   }
 };
 
+// (v + b[col]) + res[row, col]; a null b or res is left out.
 struct BiasResidualEpilogue {
   const float* b;
   const float* res;
   int F;
   __device__ __forceinline__ float operator()(float v, int row, int col) const {
-    return (v + b[col]) + res[static_cast<long long>(row) * F + col];
+    if (b != nullptr) v += b[col];
+    if (res != nullptr) v += res[static_cast<long long>(row) * F + col];
+    return v;
   }
 };
 
@@ -92,14 +108,19 @@ mm_res_f32_kernel(const float* __restrict__ a, const float* __restrict__ w,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (of a, w, res and out). Returns the
-// launch's cudaError_t (cudaErrorInvalidValue also when a tensor map cannot
-// be encoded).
+// dtype: 0 = float32, 1 = bfloat16 (of a, w and res). out_f32: 0 = out in
+// that type, b and res both given; 1 = out float32, b and res each may be
+// null (left out). Returns the launch's cudaError_t (cudaErrorInvalidValue
+// also when a tensor map cannot be encoded, or for a null b or res with a
+// bf16 out).
 extern "C" int mm_res(const void* a, const void* w, const void* b, const void* res,
-                      void* out, int N, int K, int F, int dtype, void* stream) {
+                      void* out, int N, int K, int F, int dtype, int out_f32,
+                      void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    const hgemm::Params p{static_cast<const float*>(b), nullptr, nullptr, nullptr, N, K, F};
+    const hgemm::Params p{static_cast<const float*>(b), nullptr, nullptr, nullptr, N, K, F, 0};
+    if (out_f32) return hgemm::launch<BN, false, true>(a, w, out, res, p, s);
+    if (b == nullptr || res == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     return hgemm::launch<BN, false>(a, w, out, res, p, s);
   }
   if (dtype == 0)

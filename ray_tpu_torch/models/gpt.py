@@ -35,9 +35,15 @@ group, and the cross entropy runs on each rank's vocabulary block of the
 logits, whose row max, sum of exponentials and gold logit are
 all-reduced, so no rank gathers a [T, V] row. Each rank's gradient of a
 split parameter is its shard (``shard_param``) of the full gradient, and
-of a replicated one the full gradient. ``fused_entry_exit`` under tp
-raises (ROADMAP A4.5): ``matmul_residual`` would add the residual into
-every rank's partial sum and round it to bf16 before the f32 all-reduce.
+of a replicated one the full gradient. With ``fused_entry_exit`` under
+tp, ``ln_matmul`` runs on the rank's column shard of the QKV and FC
+weights, its x, gain and shift entering through the group's pvary (the
+layernorm's backward, inside the fused op, gives each rank a partial
+sum); the row-parallel exits are ``_RowParallelExit``: each rank's f32
+partial (``matmul_partial_f32_fwd``, mm_res.cu's f32 instance), the bias
+and the residual added on tp rank 0 only, the f32 all-reduce, one
+rounding, and a backward that gives every rank the full bias and residual
+cotangents.
 
 ``GPT.loss_pp`` runs the layer stack as the in-program pipeline
 (``parallel.pipeline.pipeline_spmd``) over a mesh's pp axis of gang
@@ -55,9 +61,14 @@ the embedding and one per layer from the caller's generator, and each
 block draws its masks from a generator seeded anew, so the recompute
 draws the same masks and remat never changes a result.
 
+``seq_axis`` (``"sp"``) sends attention through ``ring_attention`` over
+that mesh axis, before the flash or reference choice, as in the JAX
+model: the model then runs inside a ``lower_shard_map`` body, each rank on
+its chunk of the sequence with the chunk's global ``positions``;
+``gpt_sp_loss`` is the sequence-parallel training loss.
+
 Not here until a slice reads them: the XLA compile knobs ``scan_layers``
-and ``flash_block_q/k`` (the CUDA kernels choose their own tiles), and
-``seq_axis`` (ring attention).
+and ``flash_block_q/k`` (the CUDA kernels choose their own tiles).
 """
 from __future__ import annotations
 
@@ -69,9 +80,11 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import (cross_entropy_loss, flash_attention, gelu, layernorm,
-                   ln_matmul, matmul_residual, mha_reference,
-                   paged_attention_decode, paged_attention_prefill,
-                   paged_write_prefill, paged_write_step)
+                   ln_matmul, matmul_partial_f32_fwd, matmul_residual,
+                   mha_reference, paged_attention_decode,
+                   paged_attention_prefill, paged_write_prefill,
+                   paged_write_step, ring_attention)
+from ..ops.fused import matmul_residual_bwd
 from ..ops.remat import COLLECTIVES, FLASH, MATMULS, remat
 from ..parallel.sharding.tensor_parallel import TensorParallel, head_layout
 
@@ -133,6 +146,35 @@ class _LMHead(torch.autograd.Function):
         return dx.to(x.dtype), dw.to(w.dtype)
 
 
+class _RowParallelExit(torch.autograd.Function):
+    """The fused block exit a . w + b + res of a row-parallel weight under
+    tp, the unsplit ``matmul_residual``'s function: each rank's f32
+    partial of its rows of ``w`` (tp rank 0's with b and res added in
+    f32), summed over the group in f32 (the dispatcher op that remat
+    saves) and rounded once to a's dtype, on every rank. The backward is
+    ``matmul_residual``'s on every rank: da and dw of the rank's own
+    slice, and the full db and dres, since b and the residual stream are
+    replicated (each rank's gradient of a replicated parameter is the
+    full gradient), though only rank 0 added them."""
+
+    @staticmethod
+    def forward(ctx, a, w, b, res, tp):
+        from ..parallel.sharding.lower import group_all_reduce
+
+        first = tp.rank == 0
+        part = matmul_partial_f32_fwd(a, w, b if first else None,
+                                      res if first else None)
+        ctx.save_for_backward(a, w)
+        return group_all_reduce(part, tp.group,
+                                name="tp.psum").to(a.dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        a, w = ctx.saved_tensors
+        return (*matmul_residual_bwd(a, w, dout), None)
+
+
 @dataclass(frozen=True)
 class GPTConfig:
     vocab_size: int = 50257
@@ -151,6 +193,8 @@ class GPTConfig:
     # each block recomputed in the backward but for the saved set of
     # GPT.REMAT_SAVED; on by default, as in the JAX model
     remat: bool = True
+    # the mesh axis of ring attention (sequence parallelism): set to "sp"
+    seq_axis: Optional[str] = None
 
     @property
     def padded_vocab(self) -> int:
@@ -198,11 +242,6 @@ class GPT:
                  tp: Optional[TensorParallel] = None):
         self.config = config
         self.tp = tp if tp is not None and tp.size > 1 else None
-        if self.tp is not None and config.fused_entry_exit:
-            raise NotImplementedError(
-                "GPTConfig.fused_entry_exit under tensor parallelism is not "
-                "ported (ROADMAP A4.5): the fused exit would need an f32 "
-                "partial product with the residual on one rank")
         self._layout = None if self.tp is None else head_layout(
             config.n_head, config.n_head, tp.size, tp.rank)
         self._heads = config.n_head if self.tp is None else \
@@ -343,6 +382,28 @@ class GPT:
         is summed over the group in the backward."""
         return x if self.tp is None else self.tp.enter(x)
 
+    def _ln_matmul(self, x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                   w: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
+        """The fused entry layernorm(x; g, b) . w + wb. Under tp w and wb
+        are the rank's column shard, and x, g and b all enter through the
+        group's pvary: the layernorm's backward runs inside the fused op
+        on the rank's part of the cotangent, so their gradients are
+        partial sums."""
+        dtype = self.config.dtype
+        if self.tp is not None:
+            x, g, b = self.tp.enter((x, g, b))
+        return ln_matmul(x, g, b, w.to(dtype), wb.to(dtype))
+
+    def _exit(self, a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              res: torch.Tensor) -> torch.Tensor:
+        """The fused exit a . w + b + res: ``matmul_residual``, or under tp
+        (w the rank's rows) ``_RowParallelExit``."""
+        dtype = self.config.dtype
+        w, b = w.to(dtype), b.to(dtype)
+        if self.tp is None:
+            return matmul_residual(a, w, b, res)
+        return _RowParallelExit.apply(a, w, b, res, self.tp)
+
     def _dropout(self, x: torch.Tensor,
                  generator: torch.Generator) -> torch.Tensor:
         """Inverted dropout: keep each element with probability 1 - rate
@@ -361,15 +422,16 @@ class GPT:
         H, hd = self._heads, c.head_dim
         drop = c.dropout > 0.0 and generator is not None
         if c.fused_entry_exit:
-            qkv = ln_matmul(x.reshape(B * S, D), lp["ln1_g"], lp["ln1_b"],
-                            lp["w_qkv"].to(c.dtype),
-                            lp["b_qkv"].to(c.dtype)).reshape(B, S,
-                                                             3 * H * hd)
+            qkv = self._ln_matmul(x.reshape(B * S, D), lp["ln1_g"],
+                                  lp["ln1_b"], lp["w_qkv"],
+                                  lp["b_qkv"]).reshape(B, S, 3 * H * hd)
         else:
             h = self._enter(layernorm(x, lp["ln1_g"], lp["ln1_b"]))
             qkv = self._mm(h, lp["w_qkv"]) + lp["b_qkv"].to(c.dtype)
         q, k, v = (t.reshape(B, S, H, hd) for t in qkv.split(H * hd, dim=-1))
-        if c.use_flash:
+        if c.seq_axis is not None:
+            attn = ring_attention(q, k, v, axis_name=c.seq_axis, causal=True)
+        elif c.use_flash:
             # the split views of qkv are strided; the kernels take
             # contiguous [B, S, H, D]
             attn = flash_attention(q.contiguous(), k.contiguous(),
@@ -377,16 +439,12 @@ class GPT:
         else:
             attn = mha_reference(q, k, v, causal=True)
         if c.fused_entry_exit and not drop:
-            x = matmul_residual(attn.reshape(B * S, D),
-                                lp["w_proj"].to(c.dtype),
-                                lp["b_proj"].to(c.dtype),
-                                x.reshape(B * S, D))
-            h = gelu(ln_matmul(x, lp["ln2_g"], lp["ln2_b"],
-                               lp["w_fc"].to(c.dtype),
-                               lp["b_fc"].to(c.dtype)))
-            return matmul_residual(h, lp["w_out"].to(c.dtype),
-                                   lp["b_out"].to(c.dtype),
-                                   x).reshape(B, S, D)
+            x = self._exit(attn.reshape(B * S, H * hd), lp["w_proj"],
+                           lp["b_proj"], x.reshape(B * S, D))
+            h = gelu(self._ln_matmul(x, lp["ln2_g"], lp["ln2_b"],
+                                     lp["w_fc"], lp["b_fc"]))
+            return self._exit(h, lp["w_out"], lp["b_out"],
+                              x).reshape(B, S, D)
         proj = self._mm_row(attn.reshape(B, S, H * hd), lp["w_proj"]) \
             + lp["b_proj"].to(c.dtype)
         if drop:
@@ -708,6 +766,48 @@ class GPT:
             attn = paged_attention_decode(q, kl, vl, block_rows, lengths)
             x = self._paged_proj(x, attn, lp)
         return self._paged_logits(params, x), cache
+
+
+def gpt_sp_loss(model: GPT, params: Params, tokens: torch.Tensor,
+                targets: torch.Tensor, mesh,
+                num_chunks: int = 1) -> torch.Tensor:
+    """The sequence-parallel training loss of the JAX package's sp pass
+    (``__graft_entry__.py``'s ``sp_loss``), over a MeshOwner ``mesh``:
+    ``model`` has ``config.seq_axis`` set, ``tokens`` and ``targets`` are
+    this rank's [B / dp, S / sp] shard (batch over dp, sequence over the
+    seq axis) and ``params`` are replicated. Inside a shard_map body the
+    params enter through pvary over dp and the seq axis, the local chunk
+    runs at its global positions (ring attention over the seq axis), and
+    the loss is the mean over both axes (psum, then / their size) of the
+    local mean cross entropy (the tied head over ``num_chunks`` chunks):
+    the same on every rank. Its backward leaves the full gradient of
+    every parameter on every rank."""
+    from ..parallel.mesh import PartitionSpec
+    from ..parallel.sharding import lower
+
+    seq_axis = model.config.seq_axis
+    if seq_axis is None:
+        raise ValueError("gpt_sp_loss needs GPTConfig.seq_axis (ring "
+                         "attention over the sequence axis)")
+
+    axes = ("dp", seq_axis)
+
+    def body(params, tokens, targets):
+        params = lower.pvary(params, axes, name="params")
+        s_local = tokens.shape[1]
+        positions = lower.axis_index(seq_axis) * s_local + torch.arange(
+            s_local, device=tokens.device)[None]
+        x = model._backbone(params, tokens, positions=positions)
+        local = model._chunked_head_nll(params["wte"], x, targets,
+                                        num_chunks)
+        n = math.prod(lower.axis_size(a) for a in axes)
+        return lower.psum(local, axes, name="loss") / n
+
+    data = PartitionSpec(*axes)
+    return lower.lower_shard_map(
+        body, mesh, in_specs=({n: PartitionSpec() for n in params}, data,
+                              data),
+        out_specs=PartitionSpec())(params, tokens, targets)
 
 
 # ---------------------------------------------------------------------------

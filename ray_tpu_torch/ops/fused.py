@@ -8,6 +8,13 @@ each launches its hand-written Hopper kernel (``csrc/ln_matmul.cu``,
 version, the same function in plain PyTorch with the same rounding
 points, which the tests and chip_smoke.py hold the kernel against.
 
+``matmul_partial_f32_fwd`` is the f32-output instance of the same
+``csrc/mm_res.cu`` kernel, a . w (+ b) (+ res) in f32, never rounded: a
+rank's partial of a row-parallel product under tensor parallelism, summed
+over the ranks before it is rounded (the tensor-parallel GPT's fused exit,
+models/gpt.py). It has no TPU counterpart of its own: the JAX package's
+fused exit runs unsplit under GSPMD.
+
 ``ln_matmul`` and ``matmul_residual`` are the differentiable entry points:
 ``torch.autograd.Function``s (the counterparts of the JAX package's
 ``custom_vjp``s) whose forward saves what the JAX forward saves, (x, g, b,
@@ -18,7 +25,7 @@ have no backward kernel, so neither does the port.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,7 +36,7 @@ _MAX_ROW_TILES = 65535         # the kernels' grid rows (64 rows or more each)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LN_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
     ctypes.c_float, ctypes.c_void_p]
-_MR_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_MR_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _check_shapes(fn: str, a: torch.Tensor, w: torch.Tensor,
@@ -158,7 +165,7 @@ def matmul_residual_fwd(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     with torch.cuda.device(a.device):
         err = lib.mm_res(a.data_ptr(), w.data_ptr(), b32.data_ptr(),
                          res.data_ptr(), out.data_ptr(), n, k, f,
-                         _DTYPE_CODE[a.dtype],
+                         _DTYPE_CODE[a.dtype], 0,
                          torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mm_res launch failed: cudaError {err}")
@@ -167,6 +174,63 @@ def matmul_residual_fwd(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 matmul_residual_fwd.launches = 0   # kernel launches since last reset
+
+
+def matmul_partial_f32_plain(a: torch.Tensor, w: torch.Tensor,
+                             b: Optional[torch.Tensor] = None,
+                             res: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """The f32 instance's function in plain PyTorch: a . w accumulated in
+    f32 (an f32 product), then + b and + res in f32 where given, in that
+    order; returned in f32, never rounded."""
+    out = a.float() @ w.float()
+    if b is not None:
+        out = out + b.float()
+    if res is not None:
+        out = out + res.float()
+    return out
+
+
+def matmul_partial_f32_fwd(a: torch.Tensor, w: torch.Tensor,
+                           b: Optional[torch.Tensor] = None,
+                           res: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """a . w (+ b) (+ res), a [N, K], w [K, F], res [N, F] -> [N, F] f32,
+    without a gradient; b and res are each left out when None. CPU tensors
+    run the plain version; CUDA tensors launch csrc/mm_res.cu's f32-output
+    instance, which takes a, w and res bf16 or f32 alike, K and F multiples
+    of 64, contiguous and 16-byte aligned (b goes to it as f32) — anything
+    else raises. One fixed summation order: bitwise equal from call to
+    call."""
+    f = w.shape[-1] if w.dim() == 2 else -1
+    _check_shapes("matmul_partial_f32_fwd", a, w,
+                  **({} if b is None else dict(b=(b, f))))
+    if res is not None and res.shape != (a.shape[0], f):
+        raise ValueError(f"matmul_partial_f32_fwd: res must be "
+                         f"{(a.shape[0], f)}, got {tuple(res.shape)}")
+    if a.device.type == "cpu":
+        return matmul_partial_f32_plain(a, w, b, res)
+    b32 = None if b is None else b.float()                 # exact cast
+    _check_kernel_inputs("matmul_partial_f32_fwd",
+                         dict(a=a, w=w, **({} if res is None
+                                           else dict(res=res))),
+                         {} if b32 is None else dict(b=b32))
+    n, k = a.shape
+    out = torch.empty((n, f), dtype=torch.float32, device=a.device)
+    lib = _build.load("mm_res", _MR_ARGTYPES)
+    with torch.cuda.device(a.device):
+        err = lib.mm_res(a.data_ptr(), w.data_ptr(),
+                         None if b32 is None else b32.data_ptr(),
+                         None if res is None else res.data_ptr(),
+                         out.data_ptr(), n, k, f, _DTYPE_CODE[a.dtype], 1,
+                         torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mm_res (f32 out) launch failed: cudaError {err}")
+    matmul_partial_f32_fwd.launches += 1
+    return out
+
+
+matmul_partial_f32_fwd.launches = 0   # kernel launches since last reset
 
 
 def ln_matmul_bwd(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,

@@ -13,15 +13,20 @@ dispatcher names them (``aten::mm``, whatever its overload):
 - ``FLASH``: the flash forward's out and lse (JAX's ``flash_out`` and
   ``flash_lse`` names), so the backward never launches the forward
   kernel again.
-- ``COLLECTIVES``: the all-reduce of ``parallel.sharding.lower``, so a
-  recompute never runs a collective again: every rank's backward reaches
-  the same collectives, in the same order, with remat on or off.
+- ``COLLECTIVES``: the all-reduce and the ppermute of
+  ``parallel.sharding.lower``, so a recompute never runs a collective
+  again: every rank's backward reaches the same collectives, in the same
+  order, with remat on or off.
 
 With ``saved`` empty nothing is kept (a bare ``jax.checkpoint``). Under
-``no_grad`` ``fn`` just runs.
+``no_grad`` ``fn`` just runs. ``fn`` runs, and runs again in the
+backward, in a copy of the caller's context variables, so a recompute
+outside the caller's scope sees what the forward saw (a shard_map body's
+bound axes, which ring attention reads).
 """
 from __future__ import annotations
 
+import contextvars
 import functools
 from typing import Callable, Iterable
 
@@ -31,7 +36,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 MATMULS = ("aten::mm",)
 FLASH = ("ray_tpu_torch::flash_fwd",)
-COLLECTIVES = ("ray_tpu_torch::all_reduce",)
+COLLECTIVES = ("ray_tpu_torch::all_reduce", "ray_tpu_torch::ppermute")
 
 
 def _policy(saved: frozenset):
@@ -47,8 +52,13 @@ def remat(fn: Callable, *args, saved: Iterable[str] = ()):
     the outputs of the ops ``saved`` names (module docstring)."""
     if not torch.is_grad_enabled():
         return fn(*args)
+    ctx = contextvars.copy_context()
+
+    def run(*a):
+        return ctx.run(fn, *a)
+
     saved = frozenset(saved)
     if not saved:
-        return checkpoint(fn, *args, use_reentrant=False)
-    return checkpoint(fn, *args, use_reentrant=False,
+        return checkpoint(run, *args, use_reentrant=False)
+    return checkpoint(run, *args, use_reentrant=False,
                       context_fn=_policy(saved))

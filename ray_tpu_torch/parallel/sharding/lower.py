@@ -26,10 +26,11 @@
   collectives in the same order; :func:`collective_stats` keeps their
   seconds and bytes. :func:`group_all_reduce` and :func:`group_pvary` are
   the same pair over a process group that the caller holds (the
-  tensor-parallel split's). The all-reduce is the dispatcher op
-  ``ray_tpu_torch::all_reduce``, so a selective checkpoint
-  (``ops.remat``) keeps its output and never runs it again in a
-  recompute.
+  tensor-parallel split's). :func:`psum` and :func:`pvary` take a tuple
+  of axes too, one collective over each in turn. The all-reduce and the
+  permutation are the dispatcher ops ``ray_tpu_torch::all_reduce`` and
+  ``ray_tpu_torch::ppermute``, so a selective checkpoint (``ops.remat``)
+  keeps their outputs and never runs them again in a recompute.
 - :func:`sharded_init` — each rank materializes its shards from a seeded
   full init, one tensor at a time, so no rank holds the whole tree.
 
@@ -272,11 +273,18 @@ def group_all_reduce(x, group, *, name: str = "psum", op: str = "sum"):
     return torch.ops.ray_tpu_torch.all_reduce(x, id(group), name, op)
 
 
-def psum(x, axis_name: str, *, name: Optional[str] = None):
-    """Sum of ``x`` over the ranks of ``axis_name`` (jax.lax.psum).
-    Differentiable: the result is replicated over the axis, so the
-    cotangent passes through unchanged."""
-    return group_all_reduce(x, _group(axis_name), name=name or "psum")
+def _axes(axis_name) -> Tuple[str, ...]:
+    return (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+
+
+def psum(x, axis_name, *, name: Optional[str] = None):
+    """Sum of ``x`` over the ranks of ``axis_name`` (jax.lax.psum; a tuple
+    of axes sums over each in turn). Differentiable: the result is
+    replicated over the axes, so the cotangent passes through
+    unchanged."""
+    for axis in _axes(axis_name):
+        x = group_all_reduce(x, _group(axis), name=name or "psum")
+    return x
 
 
 def _perm_peers(perm: Sequence[Tuple[int, int]], me: int, n: int):
@@ -317,13 +325,36 @@ def _exchange(x, to: Optional[int], frm: Optional[int], me: int, group):
     return buf.to(x.device)
 
 
+_LIB.define("ppermute(Tensor x, int group, int to, int frm, int me, "
+            "str name) -> Tensor")
+
+
+def _ppermute_op(x, group: int, to: int, frm: int, me: int, name: str):
+    """``x`` sent to the rank of index ``to`` of the process group of id
+    ``group`` and what the rank of index ``frm`` sent returned (-1: none),
+    recorded under ``name``."""
+    return _timed(name, x, lambda: _exchange(
+        x, None if to < 0 else to, None if frm < 0 else frm, me,
+        _GROUPS[group]))
+
+
+_LIB.impl("ppermute", _ppermute_op, "CompositeExplicitAutograd")
+
+
+def _ppermute_call(x, group, to, frm, me, name):
+    _GROUPS[id(group)] = group
+    return torch.ops.ray_tpu_torch.ppermute(
+        x, id(group), -1 if to is None else to, -1 if frm is None else frm,
+        me, name)
+
+
 class _PPermute(torch.autograd.Function):
     """ppermute; its transpose is the inverse permutation (JAX's)."""
 
     @staticmethod
     def forward(ctx, x, group, to, frm, me, name):
         ctx.peers = (group, to, frm, me, name)
-        return _timed(name, x, lambda: _exchange(x, to, frm, me, group))
+        return _ppermute_call(x, group, to, frm, me, name)
 
     @staticmethod
     def backward(ctx, g):
@@ -347,7 +378,7 @@ def ppermute(x, axis_name: str, perm: Sequence[Tuple[int, int]], *,
     name = name or "ppermute"
     if _grad_needed(x):
         return _PPermute.apply(x, group, to, frm, me, name)
-    return _timed(name, x, lambda: _exchange(x, to, frm, me, group))
+    return _ppermute_call(x, group, to, frm, me, name)
 
 
 def _sum_over(xs: List, group, name: str) -> List:
@@ -381,14 +412,16 @@ class _PVary(torch.autograd.Function):
                                        ctx.name + ".T"))
 
 
-def pvary(x, axis_name: str, *, name: Optional[str] = None):
+def pvary(x, axis_name, *, name: Optional[str] = None):
     """Mark ``x`` (a tensor, or a dict, list or tuple tree of them) as
-    varying over ``axis_name``: the values are unchanged, and in the
-    backward each differentiable leaf's cotangent is summed over the
-    ranks of the axis (JAX's ``pvary``, the transpose of a replicated
-    input entering the manual region). The summed leaves share one
-    all-reduce per dtype."""
-    return group_pvary(x, _group(axis_name), name=name or "pvary")
+    varying over ``axis_name`` (or a tuple of axes): the values are
+    unchanged, and in the backward each differentiable leaf's cotangent
+    is summed over the ranks of the axis, of each axis in turn (JAX's
+    ``pvary``, the transpose of a replicated input entering the manual
+    region). The summed leaves share one all-reduce per dtype and axis."""
+    for axis in _axes(axis_name):
+        x = group_pvary(x, _group(axis), name=name or "pvary")
+    return x
 
 
 def group_pvary(x, group, *, name: str = "pvary"):
@@ -573,6 +606,13 @@ def axis_index(axis_name: str) -> int:
     import torch.distributed as dist
 
     return dist.get_group_rank(_group(axis_name), dist.get_rank())
+
+
+def axis_size(axis_name: str) -> int:
+    """The number of ranks along ``axis_name`` (JAX's ``psum(1, axis)``)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size(_group(axis_name))
 
 
 def sharded_init(init_fn: Callable, owner: MeshOwner,

@@ -1,6 +1,10 @@
 """Parity of the port's fused block entry and exit (ray_tpu_torch.ops.fused
 and ``GPTConfig.fused_entry_exit``) with the JAX package's, on the CPU.
 
+The f32-output instance of mm_res (``matmul_partial_f32_fwd``, the
+tensor-parallel exit's partial) is held to the JAX ``matmul_residual`` on
+f32 inputs, zeros standing for the bias and residual a rank leaves out.
+
 Inputs are made with numpy from a seed and handed to both sides. The JAX
 side runs its Pallas kernels (``_ln_matmul_kernel``, ``_mm_res_kernel``)
 in interpret mode, with blocks small enough that the grid has more than
@@ -164,6 +168,56 @@ def test_fused_wrappers_check_shapes_and_have_no_fallback_off_cpu():
                                  torch.zeros(4, 128, device="meta"))
     assert (tops.ln_matmul_fwd.launches,
             tops.matmul_residual_fwd.launches) == before
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(
+    str, s[:3])))
+@pytest.mark.parametrize("adds", ["b and res", "neither"])
+def test_matmul_partial_f32_plain_matches_jax_f32_path(shape, adds,
+                                                       monkeypatch):
+    """The f32 partial's plain version (a tensor-parallel rank's exit: a .
+    w, + b and + res only where given, in f32, never rounded) equals the
+    JAX package's matmul_residual on f32 inputs, its Pallas kernel in
+    interpret mode, with zeros for what is left out: 2e-4, the reference's
+    f32 tolerance."""
+    _, _, args, _ = _case("matmul_residual", 7, "float32", shape)
+    N, _, F, BLOCK_M, BLOCK_N = shape
+    a, w, b, res = (a for a, _ in args)
+    if adds == "neither":
+        b, res = np.zeros_like(b), np.zeros_like(res)
+    calls = _spy(monkeypatch, "_mm_res_kernel")
+    want = jfused.matmul_residual(*(jnp.asarray(x) for x in (a, w, b, res)),
+                                  BLOCK_M, BLOCK_N)
+    assert calls, "the JAX side did not reach _mm_res_kernel"
+    given = [torch.from_numpy(x) for x in (b, res)] if adds != "neither" \
+        else [None, None]
+    got = tops.matmul_partial_f32_fwd(torch.from_numpy(a),
+                                      torch.from_numpy(w), *given)
+    assert got.dtype == torch.float32 and got.shape == (N, F)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=TOL["float32"], rtol=TOL["float32"])
+    # bf16 operands: the same f32 sum of the exact products, unrounded
+    a16, w16 = (torch.from_numpy(x).to(torch.bfloat16) for x in (a, w))
+    np.testing.assert_allclose(
+        tops.matmul_partial_f32_plain(a16, w16).numpy(),
+        (a16.double() @ w16.double()).numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_matmul_partial_f32_checks_shapes_and_has_no_fallback_off_cpu():
+    """The f32 partial's shapes are checked on every device (b [F] and res
+    [N, F] where given); a tensor not on the CPU never gets the plain
+    version (here: no kernel for 'meta'), and nothing counts a launch."""
+    a, w = torch.zeros(4, 64), torch.zeros(64, 128)
+    with pytest.raises(ValueError, match="b must be"):
+        tops.matmul_partial_f32_fwd(a, w, torch.zeros(64))
+    with pytest.raises(ValueError, match="res must be"):
+        tops.matmul_partial_f32_fwd(a, w, None, a)
+    with pytest.raises(ValueError, match="need a"):
+        tops.matmul_partial_f32_fwd(a, torch.zeros(32, 128))
+    before = tops.matmul_partial_f32_fwd.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        tops.matmul_partial_f32_fwd(a.to("meta"), w.to("meta"))
+    assert tops.matmul_partial_f32_fwd.launches == before
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,17 @@ functions on the same numpy inputs (its virtual 8-device CPU mesh):
   bitwise equal to the others;
 - with dropout and one generator seed, ``loss_pp`` at pp=2 x tp=2 equals
   pp=1 x tp=1 within 1e-6, remat on equals remat off bitwise, and a
-  step calls each collective as often with remat on as off.
+  step calls each collective as often with remat on as off;
+- the fused entry and exit under tp: ``GPT(tp=2, fused_entry_exit=True)``
+  ``loss`` and ``loss_chunked`` at tp=2 x dp=2, remat off and on, equal
+  JAX ``value_and_grad(loss)`` of the unsplit fused model (its Pallas
+  kernels in interpret mode; biases and layernorm parameters moved off
+  their init by a numpy draw, so that a bias or residual added on more
+  than one rank would show): the loss to 2e-5 and each rank's gradient
+  shard, ``ln*``, ``b_proj`` and ``b_out`` whole on every rank, to 2e-4;
+  remat on calls every collective as often as remat off; and
+  ``loss_pp`` at pp=2 x tp=2 fused equals the port's pp=1 x tp=1 fused
+  ``loss_pp`` within 1e-6.
 
 One runtime and one gang of four rank actors serve the module, with a
 mesh built per case; the functions the gang runs are defined inside the
@@ -156,6 +166,31 @@ def jax_gpt_loss():
     import jax
 
     model, params, tokens, targets = _gpt_inputs()
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: model.loss(p, tokens, targets)))(params)
+    return dict(params=params, tokens=tokens, targets=targets,
+                loss=float(loss),
+                grads={k: np.asarray(v) for k, v in grads.items()})
+
+
+@pytest.fixture(scope="module")
+def jax_gpt_fused_loss():
+    """JAX ``value_and_grad(loss)`` of the unsplit fused tiny GPT (f32, its
+    Pallas kernels in interpret mode) on ``_gpt_inputs``' tokens, with the
+    biases and layernorm parameters drawn off their init (numpy seed 5),
+    compiled once."""
+    import dataclasses
+
+    import jax
+
+    from ray_tpu.models import GPT as JGPT
+
+    model, params, tokens, targets = _gpt_inputs()
+    model = JGPT(dataclasses.replace(model.config, fused_entry_exit=True))
+    rng = np.random.default_rng(5)
+    params = {k: v + (0.1 * rng.standard_normal(v.shape)).astype(v.dtype)
+              if k.startswith(("b_", "ln")) else v
+              for k, v in params.items()}
     loss, grads = jax.jit(jax.value_and_grad(
         lambda p: model.loss(p, tokens, targets)))(params)
     return dict(params=params, tokens=tokens, targets=targets,
@@ -504,16 +539,16 @@ def test_gpt_loss_pp_errors_equal_jax(gang, jax_gpt, case):
 def _tp_rank_grads():
     """A function to run on a rank, made here so that it is pickled by
     value: ``grads(w, spec, np_params, tokens, targets, fn, remat,
-    dropout=0.0, seed=None)`` builds the tiny GPT (f32, mha_reference) on
-    ``spec``'s mesh with this rank's tp shards of ``np_params`` and runs
-    ``fn`` ("loss", "loss_chunked" or "loss_pp", over GPT_M microbatches
-    or chunks) and its backward. It returns the loss, this rank's
-    gradients, its mesh coordinate and the step's collective calls by
-    name."""
+    dropout=0.0, seed=None, fused=False)`` builds the tiny GPT (f32,
+    mha_reference; ``fused``: with fused_entry_exit) on ``spec``'s mesh
+    with this rank's tp shards of ``np_params`` and runs ``fn`` ("loss",
+    "loss_chunked" or "loss_pp", over GPT_M microbatches or chunks) and
+    its backward. It returns the loss, this rank's gradients, its mesh
+    coordinate and the step's collective calls by name."""
     m = GPT_M
 
     def grads(w, spec, np_params, tokens, targets, fn, remat, dropout=0.0,
-              seed=None):
+              seed=None, fused=False):
         import torch as t
 
         from ray_tpu_torch.models import GPT, GPTConfig
@@ -524,7 +559,7 @@ def _tp_rank_grads():
 
         owner = MeshOwner(spec, device_type="cpu")
         cfg = GPTConfig.tiny(dtype=t.float32, use_flash=False, remat=remat,
-                             dropout=dropout)
+                             dropout=dropout, fused_entry_exit=fused)
         model = GPT(cfg, tp=TensorParallel.from_owner(owner, "tp"))
         params = model.shard_params(gpt_params_from_numpy(
             np_params, cfg, t.device("cpu")))
@@ -653,3 +688,76 @@ def test_loss_pp_tp_dropout_equals_pp1_tp1_and_remat_off(gang, jax_gpt):
         for k, g in g_on.items():
             np.testing.assert_allclose(g, shards[k], rtol=0, atol=1e-6,
                                        err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the fused entry and exit under tp
+
+
+@pytest.mark.parametrize("fn", ["loss", "loss_chunked"])
+def test_tp_fused_gpt_matches_jax(gang, jax_gpt_fused_loss, fn):
+    """GPT(tp=2, fused_entry_exit=True) at tp=2 x dp=2, remat off and on:
+    every rank's loss within 2e-5 and gradient shards within 2e-4 of JAX
+    value_and_grad(loss) on the unsplit fused model (the ln*, b_proj and
+    b_out gradients whole on every rank, as shard_param leaves them);
+    remat on calls every collective as often as remat off, and the fused
+    exit's f32 sums and the fused entry's cotangent sums are among
+    them."""
+    def body(w, grads, np_params, tokens, targets, fn):
+        spec = {"tp": 2, "dp": 2}
+        return [grads(w, spec, np_params, tokens, targets, fn, remat,
+                      fused=True) for remat in (False, True)]
+
+    j = jax_gpt_fused_loss
+    res = run_on(gang, body, _tp_rank_grads(), j["params"], j["tokens"],
+                 j["targets"], fn)
+    off, on = zip(*res)
+    for runs in (off, on):
+        _assert_tp_matches(runs, j)
+    for (*_, calls_off), (*_, calls_on) in zip(off, on):
+        assert calls_on == calls_off
+        assert calls_on["tp.psum"] == 2 * 2 and calls_on["tp.enter.T"] > 0
+
+
+def test_loss_pp_tp_fused_equals_pp1_tp1(gang, jax_gpt_fused_loss):
+    """loss_pp at pp=2 x tp=2 with fused_entry_exit (remat on) equals the
+    port's unsplit fused loss_pp at pp=1 (a pp=1 x dp=4 mesh) within 1e-6,
+    the loss and every gradient's shard; the two ranks of each pp group
+    are bitwise equal."""
+    def body(w, grads, np_params, tokens, targets, m):
+        import torch as t
+
+        from ray_tpu_torch.models import GPT, GPTConfig
+        from ray_tpu_torch.models.convert import gpt_params_from_numpy
+        from ray_tpu_torch.parallel.sharding import MeshOwner
+
+        split = grads(w, {"pp": 2, "tp": 2}, np_params, tokens, targets,
+                      "loss_pp", True, fused=True)
+        cfg = GPTConfig.tiny(dtype=t.float32, use_flash=False,
+                             fused_entry_exit=True)
+        params = gpt_params_from_numpy(np_params, cfg, t.device("cpu"))
+        for p in params.values():
+            p.requires_grad_()
+        owner = MeshOwner({"pp": 1, "dp": 4}, device_type="cpu")
+        loss = GPT(cfg).loss_pp(params, t.from_numpy(tokens).long(),
+                                t.from_numpy(targets).long(), owner,
+                                num_microbatches=m)
+        loss.backward()
+        return split, (float(loss.detach()),
+                       {k: p.grad.numpy() for k, p in params.items()})
+
+    j = jax_gpt_fused_loss
+    res = run_on(gang, body, _tp_rank_grads(), j["params"], j["tokens"],
+                 j["targets"], GPT_M)
+    for (loss, grads, coord, _), (loss1, grads1) in res:
+        np.testing.assert_allclose(loss, loss1, rtol=0, atol=1e-6)
+        shards = _shards_of(grads1, coord)
+        for k, g in grads.items():
+            np.testing.assert_allclose(g, shards[k], rtol=0, atol=1e-6,
+                                       err_msg=k)
+    for tp in (0, 1):
+        (l0, g0, *_), (l1, g1, *_) = [r[0] for r in res
+                                      if r[0][2]["tp"] == tp]
+        assert l0 == l1
+        for k in g0:
+            assert np.array_equal(g0[k], g1[k]), (tp, k)

@@ -243,17 +243,28 @@ def test_fsdp_plane_is_not_ported_yet():
 
 
 def test_gpt_fused_entry_exit_under_tp_raises():
-    """The fused exit (matmul_residual) has no tensor-parallel form yet:
-    a GPT with fused_entry_exit raises on a tp rank instead of running
-    unfused there; at tp=1 it builds."""
+    """A GPT with fused_entry_exit no longer raises on a tp rank (its
+    tensor-parallel form, the fused entry on the rank's column shard and
+    the row-parallel exit through the f32 partials, is ported and held to
+    JAX in tests/test_torch_pipeline_spmd.py): at tp=2 it builds as rank
+    1 of the split with its shards' shapes, which ln_matmul and the f32
+    partial take; at tp=1 it is the unsplit model."""
     from ray_tpu_torch.models import GPT, GPTConfig
     from ray_tpu_torch.parallel.sharding.tensor_parallel import (
         TensorParallel)
 
-    model = GPT(GPTConfig.tiny(dtype=torch.float32, fused_entry_exit=True))
+    cfg = GPTConfig.tiny(dtype=torch.float32, fused_entry_exit=True)
+    model = GPT(cfg)
     assert model.tensor_parallel(TensorParallel(0, 1)).tp is None
-    with pytest.raises(NotImplementedError, match="A4.5"):
-        model.tensor_parallel(TensorParallel(1, 2, group=object()))
+    rank1 = model.tensor_parallel(TensorParallel(1, 2, group=object()))
+    assert rank1.tp.size == 2 and rank1.config.fused_entry_exit
+    shards = rank1.shard_params(model.init(torch.Generator()))
+    L, D, F = cfg.n_layer, cfg.d_model, cfg.d_ff
+    assert shards["w_qkv"].shape == (L, D, 3 * D // 2)
+    assert shards["w_proj"].shape == (L, D // 2, D)
+    assert shards["w_fc"].shape == (L, D, F // 2)
+    assert shards["w_out"].shape == (L, F // 2, D)
+    assert shards["b_proj"].shape == shards["b_out"].shape == (L, D)
 
 
 # ---------------------------------------------------------------------------
