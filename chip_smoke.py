@@ -294,8 +294,32 @@ Phases, each of which exits non-zero on failure:
               mm_res's f32 instance in part C; none in part D), peak
               memory, one profiled step's busy share per rank, and the
               phase's seconds.
+20. data    — the data plane (ray_tpu_torch.data). Part A, inside phase
+              13's runtime, right after phase 15: phase 13's split,
+              params, AdamW and batch on an engine started beside phase
+              13's, fed by a DataFeed: the batch's rows through
+              data.from_numpy, map_batches (packing inputs and next-token
+              targets), split_shards(1) and DataFeed.from_shards, one
+              pump actor writing into the engine's input rings. 1 + 3 fed
+              steps (step() with no batch): the losses and final params
+              equal phase 13's run_reference_1f1b result bit for bit, the
+              3 steady-state steps make zero driver dispatches
+              (dispatch_counts), each stage launches flash_fwd and
+              flash_bwd 96 times over the 4 fed steps and at least 24
+              by the end of the first, feed_stats counts 16 sent and
+              exhausted; after detach_feed() one hand-fed step equals the
+              reference's next step; the planted control (one more fed
+              step whose targets run one microbatch ahead of its inputs)
+              must not. Prints the fed step wall p50 beside phase 13's
+              hand-fed p50, feed_stats and the pump's start-up. Part B is
+              phase 17's part C: part A's loop in the same gang on
+              datasets={"train_dataset": a port Dataset of the same 8
+              rows}, each rank reading its split_shards rows through
+              iter_torch_batches onto the card, 1 + 3 steps held bit for
+              bit to phase 17's reference fed those rows; each rank
+              launches flash_fwd and flash_bwd 12 times a timed step.
 
-Nineteen main paths are counted: serving (phases 3-4), training (phase
+Twenty-one main paths are counted: serving (phases 3-4), training (phase
 5's steps), fused training (phase 6's steps), MoE training (phase 8's
 steps), ViT and ResNet training (phases 9-10, which launch no
 hand-written kernel), GPT serving (phase 7's timed engine runs, which
@@ -304,13 +328,14 @@ run, none either: the driver's counts, zeroed just before it, and each
 stage's, which start at zero with its process), pipeline (phase 13's
 engine steps: the driver's counts, zeroed just before them, and each
 stage's), the fsdp pipeline (phase 15's engine steps, counted so, with
-its peers'), tp (phase 14's apply on the two ranks, counted on each
+its peers'), data feed (phase 20 part A's fed steps, counted so), tp (phase 14's apply on the two ranks, counted on each
 rank from just before it to just after it; the control's launches do
 not count), pp spmd (phase 16's timed steps, counted on each rank
 from just before them to just after them, and the driver's, zeroed
 just before the run), train ddp (phase 17 part A's sound run, counted on
 each rank from just before its timed steps to just after them, and the
-driver's, zeroed just before the fit), train resnet (part B's sound
+driver's, zeroed just before the fit), train ddp dataset (phase 20
+part B, phase 17 part C's run, counted so), train resnet (part B's sound
 run, counted so; it launches none), remat (phase 18's remat-on timed
 steps and its Llama remat-on step), tp train, pp tp, fused tp and sp
 ring (phase 19's parts A-D, counted on each rank from just before their
@@ -320,7 +345,7 @@ launch count is zeroed just before each and read just after it; the
 kernel comparisons of phases 2 and 11, the gradient checks, phase 7's
 dense reference forward, phase 13's in-process reference, phase 15's
 control, phase 16's pp=1 run and controls, phase 17's references and
-controls, phase 18's remat-off runs, one-step checks and control, and
+controls, phase 20's hand-fed step, control and reference, phase 18's remat-off runs, one-step checks and control, and
 phase 19's references and controls do not count.
 The last three lines are the card (as nvidia-smi prints it), the kernels
 JSON line and the result JSON line. Without a CUDA device, or without the
@@ -777,6 +802,24 @@ FSDP_BYTES_SLACK = 64
 FSDP_CONTROL = "rank 1's gradient chunk taken one element on"
 FSDP_CONTROL_STEPS = 2
 QUANT_SHAPE, QUANT_BLOCK = (4, 1 << 20), 256
+# The data plane (phase 20). Part A, inside phase 13's runtime, right after
+# phase 15: phase 13's split, params, AdamW and batch on an engine started
+# beside phase 13's, fed by a DataFeed. The batch's rows go through
+# data.from_numpy, a map_batches that packs (inputs, targets),
+# split_shards(1) and DataFeed.from_shards into the engine's input rings
+# (one pump actor); PIPE_WARMUP + PIPE_STEPS fed steps, whose losses and
+# final params must be phase 13's reference bit for bit, the steady-state
+# steps with zero driver dispatches, each stage launching flash_fwd and
+# flash_bwd 24 times a step: counted over the whole fed run, since a fed
+# stage may start the next step before the driver reads its counts.
+# After detach_feed, one hand-fed step must
+# continue the trajectory (a reference of FEED_REF_STEPS steps). The
+# planted control, one more fed step whose targets run one microbatch
+# ahead of its inputs, must fail that bitwise check. Part B is phase 17's
+# part C (below).
+FEED_REF_STEPS = PIPE_WARMUP + PIPE_STEPS + 2
+FEED_CONTROL = "targets one microbatch ahead of the inputs"
+FEED_ATTACH_TIMEOUT = 300
 # The in-program pipeline (phase 16): GPT-2 small's seed-0 init and
 # batch (as phase 13: PP_SPMD_MICROBATCHES microbatches of PP_SPMD_MB
 # sequences of TRAIN_SEQ tokens), trained by GPT.loss_pp + backward +
@@ -851,6 +894,13 @@ RESNET_DDP_STEPS = RESNET_STEPS
 TOL_RESNET_DDP_PARAM = 1e-4
 RESNET_DDP_CONTROL = "prepare_model bypassed"
 TRAIN_COLLECTIVE_REPS = 3
+# Part C (phase 20 part B, the data plane): part A's loop in the same gang
+# after its controls, on datasets={"train_dataset": a port Dataset of the
+# same TRAIN_DDP_SEQS rows in TRAIN_WORKERS blocks}; each rank reads its
+# split_shards rows through iter_torch_batches onto its card. Held bit for
+# bit (losses, step-0 mean gradient, final params) to part A's reference
+# fed those rows: each rank's shard's gradient in turn, their mean, AdamW.
+DDP_DATASET_RUN = "dataset"
 # Remat (phase 18). Part 1: GPT-2 small as phase 5 (seed-0 params, B =
 # TRAIN_BATCH, S = TRAIN_SEQ, loss_chunked over HEAD_CHUNK_ROWS-row chunks,
 # GPT-2's AdamW) with remat off and on: one loss and backward each on the
@@ -4023,6 +4073,228 @@ def phase_fsdp_pipeline(ctx, wrappers, card, device=None):
                 phase_s=phase_s, card=card)
 
 
+def start_feed_engine(fns, sp, tx, tied, channel, device):
+    """Start phase 20's engine on a thread: phase 13 calls this beside its
+    own engine's start. Returns (thread, {"engine": engine or the
+    exception it raised, "engine s": seconds})."""
+    from ray_tpu_torch.train import CompiledPipelineEngine
+
+    started = {}
+
+    def start():
+        t0 = time.perf_counter()
+        try:
+            started["engine"] = CompiledPipelineEngine(
+                fns, sp, tx, num_microbatches=PIPE_MICROBATCHES, tied=tied,
+                channel_bytes=channel, setup_timeout=600, device=device)
+        except Exception as e:               # raised in phase 20
+            started["engine"] = e
+        started["engine s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=start, daemon=True)
+    thread.start()
+    return thread, started
+
+
+def stop_feed_engine(thread, started):
+    """Shut down what start_feed_engine started (idempotent)."""
+    thread.join(timeout=900)
+    engine = started.pop("engine", None)
+    if engine is not None and not isinstance(engine, Exception):
+        engine.shutdown()
+
+
+def pack_next_token(batch):
+    """map_batches UDF of phase 20: a block of token rows -> the
+    (inputs, targets) columns of next-token training (targets are the
+    rows rolled left by one, as phase 13's torch.roll)."""
+    import numpy as np
+
+    return {"inputs": batch["tokens"],
+            "targets": np.roll(batch["tokens"], -1, axis=1)}
+
+
+def feed_microbatches(shard, steps, rows, shift=0):
+    """A pump's iterator over one DataShard: ``steps`` passes, each the
+    shard's (inputs, targets) microbatches of ``rows`` rows in order;
+    with ``shift`` the targets run that many microbatches ahead of the
+    inputs (phase 20's planted control)."""
+    for _ in range(steps):
+        batches = [(b["inputs"], b["targets"])
+                   for b in shard.iter_batches(batch_size=rows)]
+        for i, (x, _) in enumerate(batches):
+            yield x, batches[(i + shift) % len(batches)][1]
+
+
+def phase_data_feed(ctx, wrappers, card, device=None):
+    """Phase 20 part A: phase 13's GPT-2 small split on the engine that
+    start_feed_engine started beside phase 13's, fed through the data
+    plane (module docstring). Returns its readings, with the stages' and
+    the driver's launches over the fed steps."""
+    import functools
+
+    import torch
+
+    from ray_tpu_torch import data
+    from ray_tpu_torch.core.runtime import dispatch_counts
+    from ray_tpu_torch.train import run_reference_1f1b
+
+    t_phase = time.perf_counter()
+    label = "data feed"
+    fns, sp, tx, tied = ctx["fns"], ctx["sp"], ctx["tx"], ctx["tied"]
+    mbs, tgts, steps = ctx["mbs"], ctx["tgts"], ctx["steps"]
+    counters, per_step_want = ctx["counters"], ctx["per_step_want"]
+    thread, started = ctx["feed_starter"]
+    thread.join(timeout=900)
+    check(not thread.is_alive(), "the fed engine did not start in 900 s")
+    engine = started["engine"]
+    if isinstance(engine, Exception):
+        raise engine
+    # the continuation's reference: phase 13's trajectory, two steps on
+    ref_losses, _ = run_reference_1f1b(
+        fns, sp, tx, [(mbs, tgts)] * FEED_REF_STEPS, tied=tied,
+        device=device)
+    # the batch through the data plane: token rows -> packed (inputs,
+    # targets) -> one shard -> a pump's microbatches
+    t_data = time.perf_counter()
+    tokens = torch.cat(mbs).cpu().numpy()
+    ds = data.from_numpy({"tokens": tokens}).map_batches(pack_next_token)
+    shards = ds.split_shards(1)
+    feed = data.DataFeed.from_shards(shards, functools.partial(
+        feed_microbatches, steps=steps, rows=PIPE_MB), name="gpt2")
+    control = data.DataFeed.from_shards(shards, functools.partial(
+        feed_microbatches, steps=1, rows=PIPE_MB, shift=1),
+        name="control")
+    data_s = time.perf_counter() - t_data
+    try:
+        where0 = engine.placement()[0]
+        for f in wrappers:                   # the data feed path starts
+            f.launches = 0
+        t0 = time.perf_counter()
+        engine.attach_feed(feed, timeout=FEED_ATTACH_TIMEOUT)
+        attach_s = time.perf_counter() - t0
+        losses = [engine.step(timeout=600)]
+        walls = [engine.last_step_s]
+        where1 = engine.placement()[0]
+        d0 = dispatch_counts()
+        for _ in range(steps - 1):
+            losses.append(engine.step(timeout=600))
+            walls.append(engine.last_step_s)
+        d1 = dispatch_counts()
+        driver_launches = {f.__name__: f.launches for f in wrappers}
+        where2 = engine.placement()[0]
+        # a pump's counts land a beat after its last send (detach_feed
+        # waits for them so too)
+        stats, deadline = engine.feed_stats(), time.monotonic() + 5.0
+        while (not all(s["exhausted"] for s in stats)
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+            stats = engine.feed_stats()
+        fed_params = engine.get_params()
+        t0 = time.perf_counter()
+        engine.detach_feed()
+        detach_s = time.perf_counter() - t0
+        hand_loss = engine.step(mbs, tgts, timeout=600)
+        t0 = time.perf_counter()
+        engine.attach_feed(control, timeout=FEED_ATTACH_TIMEOUT)
+        control_attach_s = time.perf_counter() - t0
+        ctl_loss = engine.step(timeout=600)
+    finally:
+        stop_feed_engine(thread, started)
+    dispatches = (d1[0] - d0[0], d1[1] - d0[1])
+    on_card = all(w["device"].startswith("cuda") for w in where2)
+    launches = [[{n: now["kernel_launches"][f.__name__]
+                  - was["kernel_launches"][f.__name__]
+                  for n, f in counters.items()}
+                 for was, now in zip(a, b)]
+                for a, b in ((where0, where1), (where1, where2))]
+    # a fed stage 0 may start the next step's forwards before the driver
+    # reads the placement after a step (no driver send holds it back), so
+    # only the whole fed run's counts are exact: the pumps send just
+    # steps * M microbatches. After the first step each stage has done at
+    # least that step's work, since step() waits for every stage's report.
+    total = [{n: now["kernel_launches"][f.__name__]
+              - was["kernel_launches"][f.__name__]
+              for n, f in counters.items()}
+             for was, now in zip(where0, where2)]
+    want = {n: per_step_want * steps for n in counters}
+    stage_launches = [{f.__name__: now["kernel_launches"][f.__name__]
+                       - was["kernel_launches"][f.__name__]
+                       for f in wrappers}
+                      for was, now in zip(where0, where2)]
+    diff = first_difference(fed_params, ctx["ref_params"])
+    first_step = next((i for i, (a, b) in enumerate(
+        zip(losses, ctx["ref_losses"])) if a != b), None)
+    print(f"[{label}] the engine up in {started.get('engine s', 0):.1f} s "
+          f"beside phase 13's; stages on {[w['device'] for w in where2]} "
+          f"(pids {[w['pid'] for w in where2]}); the dataset "
+          f"({len(tokens)} rows -> map_batches -> split_shards(1)) and "
+          f"the two feeds built in {data_s:.2f} s")
+    print(f"[{label}] fed losses {losses}; phase 13's reference "
+          f"{ctx['ref_losses']}; equal {losses == ctx['ref_losses']} "
+          f"(first differing step {first_step}); final params equal "
+          f"{diff is None} (first differing: {diff}); driver dispatches "
+          f"over the {steps - 1} steady-state fed steps {dispatches}; "
+          f"after detach_feed, the hand-fed step {hand_loss} (reference "
+          f"{ref_losses[steps]}); control '{FEED_CONTROL}' {ctl_loss} "
+          f"(reference {ref_losses[steps + 1]}): equal "
+          f"{ctl_loss == ref_losses[steps + 1]}")
+    print(f"[{label}] flash launches a stage over the {steps} fed steps "
+          f"{total} (want {want}); read after the first step "
+          f"{launches[0]} and over the next {steps - 1} {launches[1]} "
+          f"(a stage may run ahead into the next step); driver "
+          f"{driver_launches}; stages over the fed steps {stage_launches}")
+    check(ref_losses[:steps] == ctx["ref_losses"],
+          f"the continuation's reference {ref_losses[:steps]} is not "
+          f"phase 13's {ctx['ref_losses']}")
+    check(on_card, f"a fed stage is not on the card: {where2}")
+    check(losses == ctx["ref_losses"], f"the fed losses {losses} differ "
+          f"from phase 13's reference from step {first_step}")
+    check(diff is None, f"the fed engine's final params differ from "
+          f"phase 13's reference at {diff}")
+    check(dispatches == (0, 0), f"the steady-state fed steps made driver "
+          f"dispatches {dispatches}")
+    check(all(d == want for d in total),
+          f"launches a stage over the fed steps {total}, want {want}")
+    check(all(d[n] >= per_step_want for d in launches[0] for n in d),
+          f"launches a stage after the first fed step {launches[0]}, want "
+          f"at least {per_step_want} of each")
+    check(not any(driver_launches.values()),
+          f"the driver launched {driver_launches} on the data feed path")
+    check(not any(s[f.__name__] for s in stage_launches
+                  for f in wrappers[2:]),
+          f"a fed stage launched a fused kernel: {stage_launches}")
+    check([(s["sent"], s["exhausted"], s["error"]) for s in stats]
+          == [(steps * PIPE_MICROBATCHES, True, None)],
+          f"feed_stats {stats}")
+    check(hand_loss == ref_losses[steps], f"the hand-fed step after "
+          f"detach_feed {hand_loss} is not the reference's "
+          f"{ref_losses[steps]}")
+    check(ctl_loss != ref_losses[steps + 1],
+          f"control '{FEED_CONTROL}' passes the bitwise check")
+    timed = walls[PIPE_WARMUP:]
+    step_p50 = statistics.median(timed)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{label}] {card}: fed step wall "
+          f"{[round(w * 1e3, 2) for w in walls]} ms (p50 of the "
+          f"{PIPE_STEPS} timed {step_p50 * 1e3:.2f} ms; phase 13's "
+          f"hand-fed p50 {ctx['step_p50'] * 1e3:.2f} ms); feed_stats "
+          f"{stats}; the pump up (attach_feed) in {attach_s:.2f} s, the "
+          f"control's in {control_attach_s:.2f} s; detach_feed "
+          f"{detach_s:.2f} s; the phase took {phase_s:.1f} s")
+    return dict(losses=losses, hand_fed_loss=hand_loss,
+                control_loss=ctl_loss, reference_losses=ref_losses,
+                dispatches=dispatches, feed_stats=stats,
+                step_wall_s=walls, step_p50_s=step_p50,
+                handfed_step_p50_s=ctx["step_p50"], attach_s=attach_s,
+                control_attach_s=control_attach_s, detach_s=detach_s,
+                start_s=started.get("engine s"), data_s=data_s,
+                launches_per_step=launches, launches_total=total,
+                stage_launches=stage_launches,
+                driver_launches=driver_launches, phase_s=phase_s,
+                card=card)
+
+
 def phase_pipeline(wrappers, card, device=None):
     """Pipeline-parallel GPT-2 small training over compiled graphs (phase
     13 of the module docstring). The driver's launch counts of
@@ -4067,7 +4339,7 @@ def phase_pipeline(wrappers, card, device=None):
     per_step_want = c.n_layer // PIPE_STAGES * PIPE_MICROBATCHES
 
     ray_tpu_torch.init(num_cpus=16, object_store_memory=PIPE_OBJECT_STORE)
-    fsdp_starters = None
+    fsdp_starters = feed_starter = None
     try:
         # the two stages start in their worker processes (a torch import,
         # a CUDA context, their chunk's params through the object store)
@@ -4090,6 +4362,8 @@ def phase_pipeline(wrappers, card, device=None):
         # phase 15's engines come up beside this one
         fsdp_starters = start_fsdp_engines(fns, sp, tx, tied, channel,
                                            device)
+        # and phase 20's
+        feed_starter = start_feed_engine(fns, sp, tx, tied, channel, device)
         ref_losses, ref_params = run_reference_1f1b(
             fns, sp, tx, [(mbs, tgts)] * steps, tied=tied, device=device)
         ctl_losses, _ = run_reference_1f1b(
@@ -4229,6 +4503,12 @@ def phase_pipeline(wrappers, card, device=None):
                          for w, o in zip(where1, opt1)],
             fsdp_starters=fsdp_starters),
             wrappers, card, device)
+        data_feed = phase_data_feed(dict(
+            fns=fns, sp=sp, tx=tx, tied=tied, mbs=mbs, tgts=tgts,
+            steps=steps, counters=counters, per_step_want=per_step_want,
+            ref_losses=ref_losses, ref_params=ref_params,
+            step_p50=step_p50, feed_starter=feed_starter),
+            wrappers, card, device)
         del ref_params, new_params
         gc.collect()
         torch.cuda.empty_cache()
@@ -4309,11 +4589,14 @@ def phase_pipeline(wrappers, card, device=None):
     finally:
         if fsdp_starters is not None:        # in case phase 15 never ran
             stop_fsdp_engines(*fsdp_starters)
+        if feed_starter is not None:         # in case phase 20 never ran
+            stop_feed_engine(*feed_starter)
         ray_tpu_torch.shutdown()
     phase_s = time.perf_counter() - t_phase
     print(f"[pipeline] {card}: the phase took {phase_s:.1f} s: "
           f"the P={PIPE_STAGES} engine and its reference {pipeline_s:.1f}, "
-          f"phase 15 (fsdp={FSDP}) {fsdp['phase_s']:.1f}, the dp={PIPE_DP} "
+          f"phase 15 (fsdp={FSDP}) {fsdp['phase_s']:.1f}, phase 20 part A "
+          f"(the data feed) {data_feed['phase_s']:.1f}, the dp={PIPE_DP} "
           f"engines {dp_s:.1f}")
     launches = {n: sum(s[f.__name__] for s in stage_launches)
                 + driver_launches[f.__name__] for n, f in counters.items()}
@@ -4329,7 +4612,7 @@ def phase_pipeline(wrappers, card, device=None):
                 zero={n: {k: v for k, v in r.items()} for n, r in runs.items()},
                 zero_loss1_err=err, zero_control_err=ctl_err,
                 zero_opt_ratios=ratios, dp_s=dp_s, phase_s=phase_s,
-                fsdp=fsdp, card=card)
+                fsdp=fsdp, data_feed=data_feed, card=card)
 
 
 def tp_sync(device):
@@ -5699,7 +5982,11 @@ def ddp_gpt_loop(config):
     holds every run to the one-process reference that the driver saved
     at ``config["reference"]`` (its losses, step-0 mean gradient and
     final params: a file, since half a gigabyte through the result queue
-    takes seconds a trip) and reports the errors."""
+    takes seconds a trip) and reports the errors. The DDP_DATASET_RUN run
+    (part C, phase 20 part B) takes this rank's rows of the
+    "train_dataset" Dataset through iter_torch_batches instead, is
+    counted as the sound run is, and is held to
+    ``config["reference_dataset"]``."""
     import torch
     import torch.distributed as dist
 
@@ -5722,15 +6009,27 @@ def ddp_gpt_loop(config):
 
     c = GPTConfig.small(use_flash=True, remat=False)
     model = GPT(c)
-    tokens = torch.stack(train.get_dataset_shard("train")).to(dev)
-    targets = torch.roll(tokens, -1, dims=1)
+    rows = {"list": torch.stack(train.get_dataset_shard("train")).to(dev)}
+    if DDP_DATASET_RUN in config["runs"]:
+        shard = train.get_dataset_shard("train_dataset")
+        rows[DDP_DATASET_RUN] = torch.cat([
+            b["tokens"] for b in shard.iter_torch_batches(
+                batch_size=None, device=dev)])
     counted = (flash_attention_fwd, flash_attention_bwd, ln_matmul_fwd,
                matmul_residual_fwd)
     steps = DDP_WARMUP + DDP_STEPS
-    ref = torch.load(config["reference"], map_location=dev) if rank == 0 \
-        else None
+    refs = {"list": config["reference"],
+            DDP_DATASET_RUN: config.get("reference_dataset")}
+    loaded = {}                    # rank 0's references, each read once
     setup_s = time.time() - t_enter
     for mode in config["runs"]:
+        source = DDP_DATASET_RUN if mode == DDP_DATASET_RUN else "list"
+        tokens = rows[source]
+        targets = torch.roll(tokens, -1, dims=1)
+        if rank == 0 and source not in loaded:
+            loaded[source] = torch.load(refs[source], map_location=dev)
+        ref = loaded.get(source)
+        counting = mode in ("sound", DDP_DATASET_RUN)
         t_run = time.perf_counter()
         report_s = digest_s = 0.0
         gen = torch.Generator(device=dev)
@@ -5742,7 +6041,7 @@ def ddp_gpt_loop(config):
                                 weight_decay=TRAIN_WD)
         losses, walls, reduce_ms, ranks_equal = [], [], [], []
         for step in range(steps):
-            if mode == "sound" and step == DDP_WARMUP:
+            if counting and step == DDP_WARMUP:
                 sync()           # the timed steps of the main path start
                 for f in counted:
                     f.launches = 0
@@ -5781,7 +6080,7 @@ def ddp_gpt_loop(config):
             sync()
             walls.append(time.perf_counter() - t0)
             losses.append(float(loss_sum / n))
-            if mode == "sound":
+            if counting:
                 t2 = time.perf_counter()
                 ranks_equal.append(len(set(_gather(
                     _tree_digest(params), group))) == 1)
@@ -5799,8 +6098,9 @@ def ddp_gpt_loop(config):
         mine = {"walls": walls, "reduce_ms": reduce_ms,
                 "reduce_bytes": sum(g.numel() * 4 for g in grads),
                 "final_digest": _tree_digest(params),
-                "pid": os.getpid(), "device": str(params["wte"].device)}
-        if mode == "sound":
+                "pid": os.getpid(), "device": str(params["wte"].device),
+                "rows_digest": _digests({"rows": tokens})["rows"]}
+        if counting:
             mine.update(launches={f.__name__: f.launches for f in counted},
                         peak_bytes=torch.cuda.max_memory_allocated()
                         if cuda else None, t_enter=t_enter,
@@ -5822,7 +6122,7 @@ def ddp_gpt_loop(config):
         every = _gather(mine, group)
         train.report({"run": mode, "ranks": every,
                       "ranks_equal": ranks_equal})
-        del params, opt, loss, grads, grad0
+        del params, opt, loss, grads, grad0, ref
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
@@ -6001,10 +6301,10 @@ def _runs(result):
     return out
 
 
-def ddp_reference(model, params0, tokens, targets, steps):
+def ddp_reference(model, params0, shards, steps):
     """Part A's one-process reference: each rank's shard's gradient in
-    turn, their mean, AdamW. (losses, step-0 mean gradient, final params,
-    step walls)."""
+    turn (``shards``: each rank's (tokens, targets)), their mean, AdamW.
+    (losses, step-0 mean gradient, final params, step walls)."""
     import torch
 
     params = {nm: p.detach().clone().requires_grad_()
@@ -6016,10 +6316,9 @@ def ddp_reference(model, params0, tokens, targets, steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         grads, shard_losses = [], []
-        for r in range(TRAIN_WORKERS):
+        for tokens, targets in shards:
             opt.zero_grad(set_to_none=True)
-            loss = model.loss_chunked(params, tokens[r::TRAIN_WORKERS],
-                                      targets[r::TRAIN_WORKERS])
+            loss = model.loss_chunked(params, tokens, targets)
             loss.backward()
             grads.append({nm: p.grad for nm, p in params.items()})
             shard_losses.append(loss.detach().float())
@@ -6027,14 +6326,14 @@ def ddp_reference(model, params0, tokens, targets, steps):
             total = grads[0][nm]
             for g in grads[1:]:
                 total = total + g[nm]
-            p.grad = total / TRAIN_WORKERS
+            p.grad = total / len(shards)
         if step == 0:
             grad0 = {nm: p.grad.detach().clone() for nm, p in params.items()}
         opt.step()
         loss_sum = shard_losses[0]
         for x in shard_losses[1:]:
             loss_sum = loss_sum + x
-        losses.append(float(loss_sum / TRAIN_WORKERS))
+        losses.append(float(loss_sum / len(shards)))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         del grads
@@ -6083,6 +6382,7 @@ def phase_train(wrappers, card, device=None):
     import torch
 
     import ray_tpu_torch
+    from ray_tpu_torch import data
     from ray_tpu_torch.models import GPT, GPTConfig, ResNet, ResNetConfig
     from ray_tpu_torch.train import Checkpoint, JaxTrainer, TorchTrainer
 
@@ -6105,11 +6405,30 @@ def phase_train(wrappers, card, device=None):
         targets = torch.roll(tokens, -1, dims=1)
         t_ref = time.perf_counter()
         ref_losses, ref_grad0, ref_params, ref_walls = ddp_reference(
-            model, params0, tokens, targets, DDP_WARMUP + DDP_STEPS)
+            model, params0, [(tokens[r::TRAIN_WORKERS],
+                              targets[r::TRAIN_WORKERS])
+                             for r in range(TRAIN_WORKERS)],
+            DDP_WARMUP + DDP_STEPS)
         reference = os.path.join(storage, "ddp_reference.pt")
         torch.save({"losses": ref_losses, "grad0": ref_grad0,
                     "params": ref_params}, reference)
-        del params0, ref_grad0
+        del ref_grad0
+        # part C's Dataset of the same rows, and its reference on the
+        # rows split_shards gives each rank
+        t_ds = time.perf_counter()
+        dataset = data.from_numpy({"tokens": tokens.cpu().numpy()},
+                                  parallelism=TRAIN_WORKERS)
+        ds_rows = [torch.from_numpy(s.materialize_numpy()["tokens"]).to(dev)
+                   for s in dataset.split_shards(TRAIN_WORKERS)]
+        ds_s = time.perf_counter() - t_ds
+        ds_ref_losses, ds_ref_grad0, ds_ref_params, _ = ddp_reference(
+            model, params0, [(r, torch.roll(r, -1, dims=1))
+                             for r in ds_rows], DDP_WARMUP + DDP_STEPS)
+        reference_dataset = os.path.join(storage, "ddp_reference_ds.pt")
+        torch.save({"losses": ds_ref_losses, "grad0": ds_ref_grad0,
+                    "params": ds_ref_params}, reference_dataset)
+        ds_ref_digests = _digests(ds_ref_params)
+        del params0, ds_ref_grad0, ds_ref_params
         ref_s = time.perf_counter() - t_ref
         gc.collect()
         if device is None:
@@ -6118,9 +6437,12 @@ def phase_train(wrappers, card, device=None):
             f.launches = 0
         ddp, ddp_s, ddp_t0 = _train_fit(
             JaxTrainer, ddp_gpt_loop,
-            {"runs": ["sound", DDP_SKIP_CONTROL, DDP_HALF_CONTROL],
-             "reference": reference},
-            {"train": list(tokens.cpu())}, device_type, storage)
+            {"runs": ["sound", DDP_SKIP_CONTROL, DDP_HALF_CONTROL,
+                      DDP_DATASET_RUN],
+             "reference": reference,
+             "reference_dataset": reference_dataset},
+            {"train": list(tokens.cpu()), "train_dataset": dataset},
+            device_type, storage)
         ddp_driver = {f.__name__: f.launches for f in wrappers}
         t_ckpt = time.perf_counter()
         ckpt = Checkpoint.from_directory(
@@ -6205,6 +6527,52 @@ def phase_train(wrappers, card, device=None):
                      or ctl[mode]["grad0_err"] > TOL_DDP_GRAD
                      or ctl[mode]["param_err"] > TOL_DDP_PARAM)
             check(fails, f"control '{mode}' passes the checks")
+        # ---- part C (phase 20 part B): the loop on a port Dataset -------
+        ds_steps, ds_closing = runs[DDP_DATASET_RUN]
+        ds0 = ds_closing["ranks"][0]
+        ds_losses = [m["loss"] for m in ds_steps]
+        ds_rows_ok = [r["rows_digest"] for r in ds_closing["ranks"]] == \
+            [_digests({"rows": x})["rows"] for x in ds_rows]
+        ds_bitwise = (ds_losses == ds_ref_losses and ds0["grad0_bitwise"]
+                      and ds0["param_digests"] == ds_ref_digests)
+        ds_per_step = [{nm: r["launches"][nm] / DDP_STEPS for nm in want}
+                       for r in ds_closing["ranks"]]
+        ds_walls = [r["walls"][DDP_WARMUP:] for r in ds_closing["ranks"]]
+        print(f"[{label}] part C (phase 20 part B): the loop on "
+              f"datasets={{'train_dataset': a port Dataset of the "
+              f"{TRAIN_DDP_SEQS} rows in {TRAIN_WORKERS} blocks}} (built "
+              f"and split in the driver for the reference in "
+              f"{ds_s:.2f} s), each rank's split_shards rows through "
+              f"iter_torch_batches onto {devices}: rows as the reference's "
+              f"{ds_rows_ok}; mean losses {ds_losses}; reference "
+              f"{ds_ref_losses}; bit for bit (losses, step-0 mean "
+              f"gradient, final params) {ds_bitwise} (losses "
+              f"{ds_losses == ds_ref_losses}, gradient "
+              f"{ds0['grad0_bitwise']}, params "
+              f"{ds0['param_digests'] == ds_ref_digests}); worst errors "
+              f"loss {ds0['loss_err']}, gradient {ds0['grad0_err']}, param "
+              f"{ds0['param_err']}; ranks bitwise equal after each step "
+              f"{ds_closing['ranks_equal']}; launches a timed step per "
+              f"rank {ds_per_step}; step wall per rank "
+              f"{[[round(w * 1e3, 2) for w in ws] for ws in ds_walls]} ms "
+              f"(in the ranks, s: "
+              f"{[r['seconds'] for r in ds_closing['ranks']]})")
+        check(ds_rows_ok, "a rank's Dataset rows are not the rows "
+                          "split_shards gave the reference")
+        check(all(math.isfinite(x) for x in ds_losses),
+              f"losses {ds_losses}")
+        check(ds_losses[-1] < ds_losses[0],
+              f"loss did not fall: {ds_losses}")
+        check(all(ds_closing["ranks_equal"]),
+              "the Dataset-fed ranks are not bitwise equal after every "
+              "step")
+        check(ds_bitwise, "the Dataset-fed run is not its reference bit "
+                          "for bit")
+        check(all(p == want for p in ds_per_step),
+              f"launches a step per rank {ds_per_step}, want {want}")
+        check(not any(v for r in ds_closing["ranks"]
+                      for k, v in r["launches"].items() if k not in want),
+              "a Dataset-fed rank launched a fused kernel")
         ddp_walls = [r["walls"][DDP_WARMUP:] for r in closing["ranks"]]
         step_p50 = statistics.median(ddp_walls[0])
         ref_p50 = statistics.median(ref_walls[DDP_WARMUP:])
@@ -6330,6 +6698,8 @@ def phase_train(wrappers, card, device=None):
     launches = {path: {f.__name__: sum(r["launches"][f.__name__]
                                        for r in ranks) for f in wrappers}
                 for path, ranks in (("train_ddp", closing["ranks"]),
+                                    ("train_ddp_dataset",
+                                     ds_closing["ranks"]),
                                     ("train_resnet", rclosing["ranks"]))}
     return dict(
         ddp=dict(losses=losses, reference_losses=ref_losses,
@@ -6341,6 +6711,13 @@ def phase_train(wrappers, card, device=None):
                  reference_step_p50_s=ref_p50, reduce_ms=reduce_ms,
                  reduce_bytes=r0["reduce_bytes"], up_s=up_s,
                  peak_bytes=peaks, fit_s=ddp_s),
+        dataset=dict(losses=ds_losses, reference_losses=ds_ref_losses,
+                     bitwise=ds_bitwise, rows_ok=ds_rows_ok,
+                     ranks_equal=ds_closing["ranks_equal"],
+                     loss_err=ds0["loss_err"], grad0_err=ds0["grad0_err"],
+                     param_err=ds0["param_err"],
+                     launches_per_step=ds_per_step, step_wall_s=ds_walls,
+                     build_s=ds_s),
         resnet=dict(losses=rlosses, ranks_equal=rclosing["ranks_equal"],
                     param_err=rparam_err, bitwise=rbitwise,
                     state_moved=moved, states_equal=states_equal,
@@ -6495,6 +6872,12 @@ def main() -> int:
             counts[wrapper.__name__]
             for counts in f["stage_launches"] + f["peer_launches"])
 
+    def feed_launches(wrapper):
+        # the driver's count and both stages' over phase 20's fed steps
+        f = pipeline["data_feed"]
+        return f["driver_launches"][wrapper.__name__] + sum(
+            counts[wrapper.__name__] for counts in f["stage_launches"])
+
     fwd_launches = dict(serving=serving_launches,
                         training=training["launches"]["flash_fwd"],
                         training_fused=training_fused["launches"]["flash_fwd"],
@@ -6504,6 +6887,7 @@ def main() -> int:
                         disagg=disagg_launches(flash_attention_fwd),
                         pipeline=pipeline["launches"]["flash_fwd"],
                         pipeline_fsdp=fsdp_launches(flash_attention_fwd),
+                        data_feed=feed_launches(flash_attention_fwd),
                         tp=tp_serving["launches"],
                         pp_spmd=pp_spmd["launches"]["flash_fwd"],
                         remat=remat_phase["launches"][
@@ -6520,6 +6904,7 @@ def main() -> int:
                         disagg=disagg_launches(flash_attention_bwd),
                         pipeline=pipeline["launches"]["flash_bwd"],
                         pipeline_fsdp=fsdp_launches(flash_attention_bwd),
+                        data_feed=feed_launches(flash_attention_bwd),
                         pp_spmd=pp_spmd["launches"]["flash_bwd"],
                         remat=remat_phase["launches"][
                             flash_attention_bwd.__name__],
@@ -6596,6 +6981,9 @@ def main() -> int:
                     ln_matmul_fwd if name == "ln_matmul"
                     else matmul_residual_fwd),
                 "pipeline_fsdp": fsdp_launches(
+                    ln_matmul_fwd if name == "ln_matmul"
+                    else matmul_residual_fwd),
+                "data_feed": feed_launches(
                     ln_matmul_fwd if name == "ln_matmul"
                     else matmul_residual_fwd),
                 "pp_spmd": pp_spmd["fused_launches"][

@@ -20,6 +20,9 @@ find, and imports nothing of it (nor of JAX). What the port covers so far:
 - ``serve.llm``: the block pool, the continuous-batching engine, the
   ``LLMServer`` callable and disaggregated prefill/decode (``DisaggLLM``)
   over a compiled graph.
+- ``train``: the trainers and the pipeline engines; ``data``: the data
+  plane (``Dataset``, ``DataShard``, ``DataFeed``), host-only but for
+  ``iter_torch_batches``.
 
 Entry points (``build_model``, ``LLMServer``, ``DisaggLLM``) run on the
 CUDA card unless the caller passes ``device="cpu"``; without a card they

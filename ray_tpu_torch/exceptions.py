@@ -100,7 +100,7 @@ class ChannelFullError(CompiledGraphError):
 
 
 class DataFeedError(CompiledGraphError):
-    """A data-feed pump actor (ray_tpu/data/feed.py; not ported yet)
-    attached to a pipeline engine died or failed while the engine was
-    live; the engine aborts with this so ``recover()`` can respawn the
-    stages AND re-attach the feed."""
+    """A data-feed pump actor (ray_tpu_torch/data/feed.py) attached to a
+    pipeline engine died or failed while the engine was live; the engine
+    aborts with this so ``recover()`` can respawn the stages AND
+    re-attach the feed."""

@@ -77,11 +77,17 @@ Fault contract matches compiled graphs: a stage-actor death aborts the
 engine — ``step()`` raises ``CompiledGraphClosedError`` — and
 ``shutdown()`` releases every pre-allocated channel segment.
 
+Data feed (``attach_feed`` / ``detach_feed`` / ``feed_stats``,
+ray_tpu_torch/data/feed.py): pump actors, one per dp replica, take the
+producer role of the ``r{r}:in->c0`` / ``r{r}:in->targets`` rings and write
+into them what ``step()`` would have written for the same values; a fed
+``step()`` takes no batch and only reads losses and reports, with zero
+driver dispatches in steady state.
+
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that brings them: the data feed (``attach_feed`` / ``detach_feed`` /
-``feed_stats``: the data plane), and elastic capacity
-(``enable_elastic`` / ``resize``: the autoscaler, with the serve control
-plane in A7). ``reshard_checkpoint`` is here.
+that brings it: elastic capacity (``enable_elastic`` / ``resize``: the
+autoscaler, with the serve control plane in A7). ``reshard_checkpoint``
+is here.
 """
 from __future__ import annotations
 
@@ -99,7 +105,7 @@ from ray_tpu_torch.core.placement_group import (placement_group,
 
 from .._device import resolve_device
 from ..exceptions import (CompiledGraphClosedError, CompiledGraphError,
-                          GetTimeoutError)
+                          DataFeedError, GetTimeoutError)
 from ..parallel.mesh_group import MeshWorkerMixin
 from ..parallel.pipeline import schedule_interleaved_1f1b
 from ..parallel.zero import (host_state_dict, optimizer_state_bytes,
@@ -1078,6 +1084,15 @@ class CompiledPipelineEngine:
         self._loss_readers: List[Any] = []
         self._report_readers: List[List[Any]] = []  # [r][stage]
         self._qreaders: Dict[str, Any] = {}
+        # data feed (ray_tpu_torch/data/feed.py): writer specs for the
+        # input edges, retained at compile time so attach_feed can hand
+        # the producer role to pump actors; the feed descriptor survives
+        # recover() (which re-attaches), the pump actors do not
+        self._edge_specs: Dict[str, dict] = {}
+        self._feed = None
+        self._feed_base_step = 0  # _step_count at attach: drain accounting
+        self._feed_actors: List[Any] = []
+        self._feed_actor_ids: set = set()
         self.last_reports: List[dict] = []
         self.last_step_s: float = 0.0
         self._pg = None
@@ -1268,6 +1283,11 @@ class CompiledPipelineEngine:
                 cid, name, size = alloc_on(anode, slots)
                 spec = {"kind": "shm", "name": name, "size": size,
                         "slots": slots, "cid": cid.hex(), "edge": edge}
+                if producer == "driver":
+                    # retain the writer spec: attach_feed hands the
+                    # producer role to a pump actor by re-opening this
+                    # segment (the seq ledger is segment-resident)
+                    self._edge_specs[edge] = dict(spec)
                 wr = spec if producer != "driver" else ShmChannel(
                     self._segreader, name, size, edge=edge,
                     interrupt=self._stop, slots=slots)
@@ -1289,6 +1309,11 @@ class CompiledPipelineEngine:
             rspec = {"kind": "queue", "cid": cid.hex(), "edge": edge}
             if producer == "driver":
                 gid = self.graph_id
+                # retain an rpc writer spec: a pump actor ships the same
+                # envelopes up its control channel (cgraph_send) and the
+                # head routes them here, continuing at the handed-off seq
+                self._edge_specs[edge] = {"kind": "rpc",
+                                          "cid": cid.hex(), "edge": edge}
 
                 def send(chan_id, seq, data, _c=consumer):
                     _c.node.worker_notify(
@@ -1449,20 +1474,35 @@ class CompiledPipelineEngine:
 
     # -- execution surface -------------------------------------------------
 
-    def step(self, microbatches: Sequence[Any], targets: Sequence[Any],
+    def step(self, microbatches: Optional[Sequence[Any]] = None,
+             targets: Optional[Sequence[Any]] = None,
              timeout: float = 300.0) -> float:
         """One full (interleaved) 1F1B training step. Takes dp * M
         microbatches/targets (tensors on any device, or numpy arrays) —
         replica r consumes the contiguous slice ``[r*M:(r+1)*M]``.
         Returns the mean loss across every microbatch of every
-        replica."""
+        replica.
+
+        With a feed attached (:meth:`attach_feed`) call ``step()`` with
+        NO batch: the pump actors already keep the input rings resident,
+        so this only reads losses/reports — zero driver sends, zero
+        ``.remote()`` dispatches in steady state."""
         M, dp = self.num_microbatches, self.dp
-        if microbatches is None or targets is None:
-            raise ValueError("step() needs microbatches and targets")
-        if len(microbatches) != M * dp or len(targets) != M * dp:
-            raise ValueError(
-                f"step() needs num_microbatches*dp = {M * dp} "
-                f"microbatches, got {len(microbatches)}")
+        fed = self._feed is not None
+        if fed:
+            if microbatches is not None or targets is not None:
+                raise ValueError(
+                    "a feed is attached — step() takes no batch "
+                    "(detach_feed() to hand-feed again)")
+        else:
+            if microbatches is None or targets is None:
+                raise ValueError(
+                    "step() needs microbatches and targets (or attach "
+                    "a feed first)")
+            if len(microbatches) != M * dp or len(targets) != M * dp:
+                raise ValueError(
+                    f"step() needs num_microbatches*dp = {M * dp} "
+                    f"microbatches, got {len(microbatches)}")
         with self._lock:
             self._check_open()
         from ..cgraph.channel import FLAG_ERROR, pack_envelope, \
@@ -1473,13 +1513,15 @@ class CompiledPipelineEngine:
         deadline = time.monotonic() + timeout
         ctx = tracing.current_context()
         trace = f"{ctx[0]}:{ctx[1]}" if ctx else ""
-        self._last_step_inputs = (microbatches, targets)
+        if not fed:
+            self._last_step_inputs = (microbatches, targets)
         if _FLREC.enabled:
             _FLREC.record("pipeline.step.begin", self._gtag,
                           {"step": self._step_count})
         t0 = time.perf_counter()
         try:
-            for r in range(dp):
+            # fed: the pumps already filled the input rings
+            for r in range(0 if fed else dp):
                 for m in range(M):
                     k = r * M + m
                     self._in_writers[r].send(
@@ -1574,19 +1616,151 @@ class CompiledPipelineEngine:
                 f"pipeline engine {self._gtag} was shut down")
         return type(err)(str(err))
 
-    # -- not ported yet ----------------------------------------------------
+    # -- data feed (ray_tpu_torch/data/feed.py) ----------------------------
 
     def attach_feed(self, feed, timeout: float = 60.0) -> None:
-        raise _not_ported("the data feed (attach_feed)",
-                          "A: the data plane")
+        """Hand the input-producer role to a :class:`ray_tpu_torch.data.
+        DataFeed`: one pump actor per dp replica writes ``(inputs,
+        targets)`` microbatches straight into this engine's
+        pre-allocated ``in->c0`` / ``in->targets`` rings. ``step()``
+        (with no batch) then only reads losses/reports — the
+        tokenize→pack→shuffle→train loop runs with zero driver
+        round-trips in steady state.
+
+        Ring slot occupancy backpressures the pumps; a pump death
+        aborts the engine with :class:`DataFeedError` and ``recover()``
+        re-attaches; ``detach_feed()`` hands the rings back for
+        hand-feeding."""
+        with self._lock:
+            self._check_open()
+        if self._feed is not None:
+            raise CompiledGraphError(
+                f"pipeline engine {self._gtag} already has a feed "
+                f"attached; detach_feed() first")
+        if feed.dp != self.dp:
+            raise ValueError(
+                f"feed is sharded {feed.dp}-wide, engine dp={self.dp}")
+        self._feed = feed
+        self._feed_base_step = self._step_count
+        try:
+            self._spawn_feed(timeout)
+        except BaseException:
+            self._feed = None
+            raise
+
+    def _spawn_feed(self, timeout: float) -> None:
+        from ..data.feed import _FeedPump
+        from ..util.scheduling_strategies import \
+            NodeAffinitySchedulingStrategy
+
+        rt = self._rt
+        local_nid = next(
+            (nid for nid, n in rt.nodes.items()
+             if not getattr(n, "is_remote", False)), None)
+        cls = ray_tpu_torch.remote(_FeedPump)
+        actors: List[Any] = []
+        setups = []
+        for r in range(self.dp):
+            in_spec = self._edge_specs.get(f"r{r}:in->c0")
+            tgt_spec = self._edge_specs.get(f"r{r}:in->targets")
+            if in_spec is None or tgt_spec is None:
+                raise CompiledGraphError(
+                    "input edge specs missing — engine not compiled")
+            opts: Dict[str, Any] = {"num_cpus": 0.5}
+            if (in_spec["kind"] == "shm" or tgt_spec["kind"] == "shm") \
+                    and local_nid is not None:
+                # shm input rings live on the head node by construction
+                # (driver-producer edges): the pump must map the same
+                # segments, so pin it there. rpc edges route through the
+                # head and the pump can run anywhere.
+                opts["scheduling_strategy"] = \
+                    NodeAffinitySchedulingStrategy(local_nid, soft=False)
+            a = cls.options(**opts).remote()
+            # seq handoff: shm ledgers are segment-resident (no state to
+            # pass); rpc writers continue at the driver's current seq
+            setups.append(a.setup.remote(
+                in_spec, tgt_spec,
+                int(getattr(self._in_writers[r], "_seq", 0)),
+                int(getattr(self._tgt_writers[r], "_seq", 0)),
+                self.graph_id, self._feed.shard_blobs[r],
+                f"{self._gtag}-r{r}"))
+            actors.append(a)
+        try:
+            ray_tpu_torch.get(setups, timeout=timeout)
+            ray_tpu_torch.get([a.start.remote() for a in actors],
+                              timeout=timeout)
+        except BaseException:
+            for a in actors:
+                try:
+                    ray_tpu_torch.kill(a)
+                except Exception:
+                    pass
+            raise
+        self._feed_actors = actors
+        self._feed_actor_ids = {a._actor_id.binary() for a in actors}
 
     def detach_feed(self, timeout: float = 30.0) -> None:
-        raise _not_ported("the data feed (detach_feed)",
-                          "A: the data plane")
+        """Stop the pump actors and hand the input rings back to the
+        driver (hand-fed ``step()`` works again). Requires a DRAINED
+        feed: every pump exhausted its iterator and every fed step has
+        been read by ``step()`` — otherwise stale envelopes sit in the
+        rings (and the stages run ahead on them), skewing every later
+        hand-fed step, so an undrained detach raises instead. Drain by
+        calling ``step()`` until every fed step is consumed (build the
+        factory finite if you plan to detach), or abandon the feed with
+        ``shutdown()``. rpc writer seqs resync from the pumps' final
+        counts."""
+        if self._feed is None:
+            return
+        M = self.num_microbatches
+        # exhausted flips a beat after the last send lands; give the
+        # pump threads a moment before declaring the feed undrained
+        deadline = time.monotonic() + min(5.0, timeout)
+        while True:
+            stats = self.feed_stats(timeout)
+            read_mb = (self._step_count - self._feed_base_step) * M
+            if (all(s["exhausted"] for s in stats)
+                    and all(s["sent"] == read_mb for s in stats)):
+                break
+            if time.monotonic() >= deadline:
+                raise CompiledGraphError(
+                    f"detach_feed() on an undrained feed: pumps sent "
+                    f"{[s['sent'] for s in stats]} microbatches "
+                    f"(exhausted={[s['exhausted'] for s in stats]}) "
+                    f"but step() has read "
+                    f"{self._step_count - self._feed_base_step} fed "
+                    f"steps x {M}; stale in-flight envelopes would "
+                    f"skew every later hand-fed step. Call step() "
+                    f"until every fed step is read (make the factory "
+                    f"finite), or abandon the feed via shutdown().")
+            time.sleep(0.05)
+        # clear the watch set FIRST: the kills below must not look like
+        # a feed fault to _on_actor_event
+        actors, self._feed_actors = self._feed_actors, []
+        self._feed_actor_ids = set()
+        self._feed = None
+        for r, a in enumerate(actors):
+            try:
+                st = ray_tpu_torch.get(a.stop.remote(), timeout=timeout)
+                for w, key in ((self._in_writers[r], "in_seq"),
+                               (self._tgt_writers[r], "tgt_seq")):
+                    if hasattr(w, "_seq") and st.get(key) is not None:
+                        w._seq = int(st[key])
+            except Exception:
+                pass
+            try:
+                ray_tpu_torch.kill(a)
+            except Exception:
+                pass
 
     def feed_stats(self, timeout: float = 30.0) -> List[dict]:
-        raise _not_ported("the data feed (feed_stats)",
-                          "A: the data plane")
+        """Per-replica pump stats: {sent, exhausted, error, ...}."""
+        if not self._feed_actors:
+            return []
+        return ray_tpu_torch.get(
+            [a.stats.remote() for a in self._feed_actors], timeout=timeout)
+
+    # -- not ported yet ----------------------------------------------------
 
     def enable_elastic(self, *, min_dp: int = 1,
                        max_dp: Optional[int] = None,
@@ -1935,6 +2109,16 @@ class CompiledPipelineEngine:
         self._spawn_actors(self._init_params,
                            per_actor_state=state_grid)
         self._compile()
+        if self._feed is not None:
+            # re-attach: fresh pump actors over the recompiled rings.
+            # The shard factories restart their iterators — the resumed
+            # trajectory replays from the restored checkpoint exactly
+            # like a clean restart would.
+            self._spawn_feed(
+                max(1.0, min(60.0, deadline - time.monotonic())))
+            # pump iterators restarted from scratch: fed-step drain
+            # accounting (detach_feed) restarts with them
+            self._feed_base_step = step
         self._step_count = step
         return step
 
@@ -2017,6 +2201,9 @@ class CompiledPipelineEngine:
         self._loss_readers = []
         self._report_readers = []
         self._qreaders = {}
+        self._edge_specs = {}
+        self._feed_actors = []
+        self._feed_actor_ids = set()
         self._unsub = None
         self._shutdown_done = False
 
@@ -2040,6 +2227,15 @@ class CompiledPipelineEngine:
             self._abort(CompiledGraphClosedError(
                 f"pipeline engine {self._gtag}: stage actor or fsdp peer "
                 f"{actor_id.hex()[:8]} died while the engine was live"))
+        elif key in self._feed_actor_ids and not self._torn:
+            # feed pumps are a stateless tier, but a dead pump leaves
+            # the input rings starved mid-round — typed error so the
+            # caller knows recover() (which re-attaches) is the fix
+            self._abort(DataFeedError(
+                f"pipeline engine {self._gtag}: data-feed pump "
+                f"{actor_id.hex()[:8]} died while the engine was live; "
+                f"recover() respawns the stages and re-attaches the "
+                f"feed"))
 
     def _abort(self, err: Exception) -> None:
         with self._lock:
@@ -2079,6 +2275,17 @@ class CompiledPipelineEngine:
         if self._unsub is not None:
             try:
                 self._unsub()
+            except Exception:
+                pass
+        # feed pumps go first: clear the watch set (their deaths must
+        # not re-abort), then kill — blocked sends unwedge when the
+        # ring ledgers are poisoned below. The feed DESCRIPTOR stays:
+        # recover() re-attaches from it.
+        feed_actors, self._feed_actors = self._feed_actors, []
+        self._feed_actor_ids = set()
+        for a in feed_actors:
+            try:
+                ray_tpu_torch.kill(a)
             except Exception:
                 pass
         endpoints = (self._in_writers + self._tgt_writers

@@ -19,9 +19,6 @@ from .backend_executor import BackendExecutor, TrainWorkerError
 from .checkpoint import Checkpoint, prune_checkpoints
 from .config import Result, RunConfig, ScalingConfig
 
-# the JAX package's data-plane inputs, which the port does not have yet
-_DATA_PLANE_TYPES = ("Shardable", "DatasetPipeline")
-
 
 class DataParallelTrainer:
     """Runs `train_loop_per_worker` on a gang of workers, streams results,
@@ -45,21 +42,34 @@ class DataParallelTrainer:
     # -- dataset sharding ----------------------------------------------------
 
     def _dataset_shards(self) -> Optional[List[dict]]:
-        """Each worker's datasets: a list or tuple dealt round robin (rank
-        i takes items i, i + n, ...), any other object whole to every
-        worker."""
+        """Each worker's datasets: a ``Shardable`` (a ``Dataset``) split
+        into exactly n ``DataShard``s, a ``DatasetPipeline`` split into n
+        sub-pipelines, a list or tuple dealt round robin (rank i takes
+        items i, i + n, ...), any other object whole to every worker."""
         if not self.datasets:
             return None
+        from ..data import DataShard, DatasetPipeline
+        from ..data.iterator import Shardable
+
         n = self.scaling.num_workers
         shards: List[dict] = [{} for _ in range(n)]
         for name, ds in self.datasets.items():
-            kinds = {c.__name__ for c in type(ds).__mro__}
-            if kinds & set(_DATA_PLANE_TYPES):
-                raise NotImplementedError(
-                    f"dataset {name!r} is a {type(ds).__name__}: the data "
-                    f"plane (Dataset, DatasetPipeline and their shards) is "
-                    f"not ported yet (ROADMAP A10); pass a list or tuple")
-            if isinstance(ds, (list, tuple)):
+            if isinstance(ds, Shardable):
+                # the DataShard contract: exactly n shards, rows
+                # disjoint and exhaustive (enforced here so a broken
+                # implementer fails loudly, not with silently skewed
+                # or duplicated per-rank data)
+                parts = ds.split_shards(n)
+                if len(parts) != n or not all(
+                        isinstance(p, DataShard) for p in parts):
+                    raise TypeError(
+                        f"dataset {name!r}: split_shards({n}) must "
+                        f"return exactly {n} DataShards (the Shardable "
+                        f"contract); got {len(parts)} x "
+                        f"{[type(p).__name__ for p in parts[:3]]}")
+            elif isinstance(ds, DatasetPipeline):
+                parts = ds.split(n)
+            elif isinstance(ds, (list, tuple)):
                 parts = [list(ds[i::n]) for i in range(n)]
             else:
                 parts = [ds] * n

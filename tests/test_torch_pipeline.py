@@ -547,10 +547,11 @@ def test_activation_over_the_channel_raises(rt):
 
 
 def test_construction_validation_unported_paths_and_no_optimizer(rt):
-    """Bad shapes raise; the data feed and elastic capacity raise
-    NotImplementedError naming their ROADMAP item; an engine with
-    tx=None runs forward and backward and keeps its params. (fsdp > 1 is
-    ported: tests/test_torch_fsdp.py.)"""
+    """Bad shapes raise; a data feed sharded for another dp raises
+    ValueError (the feed itself: tests/test_torch_data_feed.py); elastic
+    capacity raises NotImplementedError naming its ROADMAP item; an
+    engine with tx=None runs forward and backward and keeps its params.
+    (fsdp > 1 is ported: tests/test_torch_fsdp.py.)"""
     fns, params = _mlp_chunks(2)
     mbs, tgts = _mlp_batches(2)
     with pytest.raises(ValueError, match="one param tree"):
@@ -565,10 +566,12 @@ def test_construction_validation_unported_paths_and_no_optimizer(rt):
         assert eng.step(mbs, tgts) == eng.step(mbs, tgts)
         _assert_trees_equal(eng.get_params(), params)
         assert eng.opt_state_bytes() == [0, 0]
-        for call in (lambda: eng.attach_feed(None), eng.detach_feed,
-                     eng.feed_stats):
-            with pytest.raises(NotImplementedError, match="data plane"):
-                call()
+        from ray_tpu_torch.data import DataFeed
+
+        with pytest.raises(ValueError, match="sharded 2-wide"):
+            eng.attach_feed(DataFeed([list, list]))
+        assert eng.feed_stats() == [] and eng._feed is None
+        eng.detach_feed()               # no feed: nothing to hand back
         for call in (eng.enable_elastic, lambda: eng.resize(2)):
             with pytest.raises(NotImplementedError, match="A7"):
                 call()

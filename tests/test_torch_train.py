@@ -508,14 +508,43 @@ def test_dataset_shards_equal_jax_package(kind, n):
     assert got == want and len(got) == n
 
 
-def test_unported_inputs_name_their_roadmap_item():
+def test_unported_inputs_name_their_roadmap_item(rt):
+    """devices_per_worker other than 1 raises naming ROADMAP C. A port
+    Dataset and a DatasetPipeline (windows of one block) shard into the
+    rows the JAX package's _dataset_shards gives its own Dataset and
+    pipeline of the same rows, at n = 1, 2 and 3."""
+    import ray_tpu
     import ray_tpu.data as jdata
+    from ray_tpu.train import DataParallelTrainer as JTrainer
+    from ray_tpu.train import ScalingConfig as JScaling
+
+    import ray_tpu_torch.data as pdata
 
     with pytest.raises(ValueError, match="ROADMAP C"):
         ScalingConfig(num_workers=2, devices_per_worker=4)
     assert ScalingConfig(devices_per_worker=1).devices_per_worker == 1
-    for ds in (jdata.range(8), jdata.range(8).repeat(2)):
-        trainer = DataParallelTrainer(lambda c: None, datasets={"train": ds},
-                                      scaling_config=_scaling())
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            trainer._dataset_shards()
+
+    def make(data, kind):
+        ds = data.range(11, parallelism=4).map(
+            lambda r: {"id": r["id"], "sq": r["id"] ** 2})
+        return ds if kind == "DataShard" else ds.window(blocks_per_window=1)
+
+    ray_tpu.init(num_cpus=2)
+    try:
+        for n in (1, 2, 3):
+            for kind in ("DataShard", "DatasetPipeline"):
+                got = DataParallelTrainer(
+                    lambda c: None, datasets={"train": make(pdata, kind)},
+                    scaling_config=_scaling(n))._dataset_shards()
+                want = JTrainer(
+                    lambda c: None, datasets={"train": make(jdata, kind)},
+                    scaling_config=JScaling(num_workers=n))._dataset_shards()
+                assert len(got) == len(want) == n
+                assert {type(s["train"]).__name__ for s in got} == {kind}
+                got_rows = [list(s["train"].iter_rows()) for s in got]
+                assert got_rows == [list(s["train"].iter_rows())
+                                    for s in want]
+                assert sorted(r["id"] for part in got_rows
+                              for r in part) == list(range(11))
+    finally:
+        ray_tpu.shutdown()
